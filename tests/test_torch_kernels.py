@@ -1,0 +1,204 @@
+"""The port's kernels: their plain PyTorch versions against the JAX
+package's Pallas kernels (interpret mode on the CPU, as the JAX package's
+own kernel tests run them), the wrappers' routing, and, on a CUDA card, the
+kernels against their plain versions.
+
+The tests marked ``cuda`` need an NVIDIA GPU with ``nvcc``; here they skip.
+Run them on the card with ``python -m pytest tests/test_torch_kernels.py
+-m cuda``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerfds_tpu.models.mlp import NerfMLP as JaxNerfMLP
+from nerfds_tpu.pallas import composite as jcomposite
+from nerfds_tpu.pallas import fused_trunk as jft
+from nerfds_torch import kernels
+from nerfds_torch.convert import params_from_jax
+from nerfds_torch.kernels import composite as tcomposite
+from nerfds_torch.kernels import fused_trunk as tft
+from nerfds_torch.models.mlp import NerfMLP
+from nerfds_torch.ops import rendering as trendering
+
+torch.set_num_threads(1)
+
+
+def t(x):
+  return torch.from_numpy(np.array(x))
+
+
+def composite_inputs(num_rays=37, num_samples=16, seed=0):
+  rng = np.random.RandomState(seed)
+  rgb = rng.rand(num_rays, num_samples, 3).astype(np.float32)
+  sigma = (rng.rand(num_rays, num_samples) * 3).astype(np.float32)
+  z = np.sort(rng.rand(num_rays, num_samples).astype(np.float32) * 3 + 1, -1)
+  dirs = rng.randn(num_rays, 3).astype(np.float32)
+  return rgb, sigma, z, dirs
+
+
+@pytest.mark.parametrize('sample_at_infinity', [True, False])
+def test_composite_plain_matches_pallas(sample_at_infinity):
+  # 37 rays on a 16-ray tile: a ragged tail on the Pallas side.
+  args = composite_inputs()
+  want = jcomposite.composite(*map(jnp.asarray, args), sample_at_infinity,
+                              1e-10, 16, True)
+  got = tcomposite.composite_forward(*map(t, args), sample_at_infinity)
+  # Tolerance: the Pallas kernel forms the running product as
+  # exp(cumsum(log)), the plain version with torch.cumprod; float32.
+  for g, w in zip(got, want):
+    np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_composite_gradient_matches_jax():
+  rgb, sigma, z, dirs = composite_inputs(num_rays=12, num_samples=8, seed=1)
+  target = np.random.RandomState(2).rand(12, 3).astype(np.float32)
+
+  def jloss(rgb, sigma, z, dirs):
+    out_rgb, depth, _, weights, *_ = jcomposite.composite(
+        rgb, sigma, z, dirs, True, 1e-10, 8, True)
+    return (jnp.mean((out_rgb - target) ** 2) + jnp.mean(depth)
+            + jnp.mean(weights ** 2))
+
+  want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+      *map(jnp.asarray, (rgb, sigma, z, dirs)))
+  inputs = [t(a).requires_grad_() for a in (rgb, sigma, z, dirs)]
+  out_rgb, depth, _, weights, *_ = tcomposite.composite(*inputs)
+  loss = (((out_rgb - t(target)) ** 2).mean() + depth.mean()
+          + (weights ** 2).mean())
+  got = torch.autograd.grad(loss, inputs)
+  for g, w in zip(got, want):
+    np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_volumetric_rendering_kernel_route_matches_plain():
+  rgb, sigma, z, dirs = map(t, composite_inputs(num_rays=9, seed=3))
+  for at_inf in (True, False):
+    a = trendering.volumetric_rendering(rgb, sigma, z, dirs, True, at_inf,
+                                        use_kernel=True)
+    b = trendering.volumetric_rendering(rgb, sigma, z, dirs, True, at_inf)
+    for k in b:
+      torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+
+
+def test_composite_wrapper_checks_inputs():
+  rgb, sigma, z, dirs = map(t, composite_inputs(num_rays=4, num_samples=5))
+  with pytest.raises(ValueError):
+    tcomposite.composite_forward(rgb[:, :4], sigma, z, dirs)
+  with pytest.raises(TypeError):
+    tcomposite.composite_forward(rgb.double(), sigma, z, dirs)
+  before = dict(kernels.launch_counts)
+  tcomposite.composite_forward(rgb, sigma, z, dirs)
+  assert kernels.launch_counts == before  # the CPU path launches nothing
+
+
+def trunk_case(n=37, norm_dim=3, has_bottleneck=True, seed=0):
+  """The JAX fused-trunk test's toy spec: depth 3, width 32, skip at 2."""
+  depth, width, skips, in_dim = 3, 32, (2,), 12
+  jm = JaxNerfMLP(trunk_depth=depth, trunk_width=width, skips=skips,
+                  rgb_branch_depth=1, rgb_branch_width=16, alpha_channels=1,
+                  predict_norm=norm_dim > 0, norm_dim=max(norm_dim, 3))
+  params = jax.device_get(
+      jm.init(jax.random.PRNGKey(seed), in_dim, 0, 8, has_bottleneck))
+  tm = NerfMLP(in_dim, 0, 8, has_bottleneck, trunk_depth=depth,
+               trunk_width=width, skips=skips, rgb_branch_width=16,
+               predict_norm=norm_dim > 0)
+  tm.load_state_dict(params_from_jax(params))
+  jspec = jft.TrunkSpec(depth=depth, width=width, skips=skips, in_dim=in_dim,
+                        alpha_channels=1, norm_dim=norm_dim,
+                        has_bottleneck=has_bottleneck)
+  tspec = tft.TrunkSpec(depth=depth, width=width, skips=skips, in_dim=in_dim,
+                        alpha_channels=1, norm_dim=norm_dim,
+                        has_bottleneck=has_bottleneck)
+  feat = np.random.RandomState(seed + 1).randn(n, in_dim).astype(np.float32)
+  return params, jspec, tm, tspec, feat
+
+
+@pytest.mark.parametrize('norm_dim,has_bottleneck', [(3, True), (0, False)])
+def test_fused_trunk_plain_matches_pallas(norm_dim, has_bottleneck):
+  # N = 37 on a 16-row tile: a ragged tail on the Pallas side.
+  params, jspec, tm, tspec, feat = trunk_case(norm_dim=norm_dim,
+                                              has_bottleneck=has_bottleneck)
+  f = jft.make_trunk_sigma_grad(jspec, tile=16, interpret=True,
+                                compute_dtype=jnp.float32)
+  want = f(jnp.asarray(feat), *jft.trunk_params_flat(jspec, params))
+  with torch.no_grad():
+    got = tft.trunk_sigma_grad(t(feat), tm.trunk_weights(), tspec)
+  # Tolerance: float32 matmuls of XLA and of torch sum in another order.
+  for g, w in zip(got, want):
+    if w is None:
+      assert g is None
+      continue
+    np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_fused_trunk_plain_matches_autograd():
+  """g from the explicit reverse sweep equals autograd of σ in the port."""
+  _, _, tm, tspec, feat = trunk_case(n=19, seed=4)
+  x = t(feat).requires_grad_()
+  trunk_out, bottleneck = tm.query_bottleneck(x)
+  sigma, norm = tm.query_sigma(trunk_out, bottleneck)
+  (g_autograd,) = torch.autograd.grad(sigma.sum(), x)
+  with torch.no_grad():
+    s, n, tr, b, g = tft.trunk_sigma_grad(t(feat), tm.trunk_weights(), tspec)
+  for got, want in ((s, sigma), (n, norm), (tr, trunk_out), (b, bottleneck),
+                    (g, g_autograd)):
+    torch.testing.assert_close(got, want.detach(), rtol=1e-6, atol=1e-6)
+
+
+def test_fused_trunk_wrapper_checks_inputs():
+  _, _, tm, tspec, feat = trunk_case(n=5)
+  with torch.no_grad():
+    with pytest.raises(ValueError):
+      tft.trunk_sigma_grad(t(feat)[:, :10], tm.trunk_weights(), tspec)
+    with pytest.raises(TypeError):
+      tft.trunk_sigma_grad(t(feat).double(), tm.trunk_weights(), tspec)
+    # The CUDA kernel's limits (width 256, ...) are checked before a launch.
+    with pytest.raises(ValueError, match='width 256'):
+      tft._check_kernel_limits(tspec, 4)
+
+
+@pytest.fixture
+def cuda():
+  if not torch.cuda.is_available():
+    pytest.skip('needs an NVIDIA GPU with nvcc')
+  return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sample_at_infinity', [True, False])
+def test_composite_kernel_matches_plain_on_card(cuda, sample_at_infinity):
+  args = [t(a).to(cuda) for a in composite_inputs(num_rays=1000,
+                                                  num_samples=128)]
+  before = kernels.launch_counts['composite_fwd']
+  got = tcomposite.composite_forward(*args, sample_at_infinity)
+  want = tcomposite.composite_reference(*args, sample_at_infinity)
+  assert kernels.launch_counts['composite_fwd'] == before + 1
+  for g, w in zip(got, want):
+    torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_trunk_kernel_matches_plain_on_card(cuda):
+  gen = torch.Generator().manual_seed(0)
+  tm = NerfMLP(52, 0, 0, True, trunk_depth=8, trunk_width=256, skips=(4,),
+               predict_norm=True, generator=gen).to(cuda)
+  spec = tft.TrunkSpec(depth=8, width=256, skips=(4,), in_dim=52,
+                       alpha_channels=1, norm_dim=3, has_bottleneck=True)
+  feat = torch.rand(4099, 52, generator=gen).to(cuda) * 2 - 1
+  with torch.no_grad():
+    before = kernels.launch_counts['fused_trunk_fwd']
+    got = tft.trunk_sigma_grad(feat, tm.trunk_weights(), spec)
+    want = tft.trunk_sigma_grad_reference(feat, tm.trunk_weights(), spec)
+  assert kernels.launch_counts['fused_trunk_fwd'] == before + 1
+  for name, g, w in zip(('sigma', 'normal', 'trunk', 'bneck'), got, want):
+    torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
+  # g follows the relu masks; a pre-activation within rounding of 0 may
+  # fall on the other side of the kink in the two versions.
+  bad = ((got[4] - want[4]).abs() > 1e-4 + 1e-4 * want[4].abs()).float()
+  assert bad.mean().item() <= 1e-3
