@@ -5,12 +5,24 @@
 
 1. Prints the card (``nvidia-smi``), fails without CUDA, and builds the
    hand-written kernels from ``nerfds_torch/kernels/csrc``.
-2. K2, compositing forward: kernel against its plain PyTorch version.
-3. K1f, trunk forward with ∂σ/∂feat: kernel against its plain version.
+2. K2, compositing forward: kernel against its plain PyTorch version, at
+   the render and the training shapes.
+3. K1f, trunk forward with ∂σ/∂feat: kernel against its plain version, at
+   the render and the training shapes.
 4. Renders a 128x128 image with the full-width ``nerf_ds()`` model through
-   both kernels (launch counts checked), then again on the plain path, and
+   K1f and K2 (launch counts checked), then again on the plain path, and
    compares the two.
-5. Prints one JSON line describing every kernel, the card's line, and as the
+5. K1b, the trunk's hand-derived backward: kernel against its plain version
+   at the training shapes and a ragged N; two launches must give the same
+   bits.
+6. Trains the full-width ``nerf_ds()`` on the synthetic scene for 24 steps
+   at batch 512 through ``Trainer.train`` (K1f, K1b and K2 twice a step,
+   checked), compares the kernel path's gradients with the plain path's,
+   and times and profiles steady steps of both paths, counting the host's
+   waits on the card in one step of each.
+7. Prints one JSON line describing every kernel ("launches": the render's
+   count for K1f and K2, the training run's for K1b; "launches_train" for
+   all three), a line of the training numbers, the card's line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and convolutions, so every plain version
@@ -26,6 +38,16 @@ import time
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# The training run: rays a batch (nerf_ds_train_config's), steps through
+# Trainer.train, and steady steps timed per turn on each path.
+TRAIN_BATCH = 512
+TRAIN_STEPS = 24
+TRAIN_TIMED_STEPS = 6
+# K1b's check: the coarse and fine rows of a training batch (64 + 64
+# samples a ray) and a ragged N; rows a block of its sweep kernel (TM in
+# nerfds_torch/kernels/csrc/trunk_tile.cuh).
+K1B_SIZES = (TRAIN_BATCH * 64, TRAIN_BATCH * 128, 4099)
+K1B_BLOCK_ROWS = 32
 
 
 def card_line() -> str:
@@ -84,6 +106,16 @@ def composite_inputs(torch, num_rays, num_samples, gen, device):
   return rgb, sigma, z, dirs
 
 
+def composite_bound(r: int, s: int):
+  """(ms, what bounds it) of K2 on R rays of S samples: each input read
+  once, each output written once, float32; about 12 operations a sample."""
+  nbytes = 4 * (r * s * 3 + r * s + r * s + r * 3
+                + r * 3 + r + r + 3 * r * s)
+  t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 12 * r * s / PEAK_F32_FLOP_PER_S
+  return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else \
+      'operations'
+
+
 def phase_composite(torch, device):
   """K2 at the chunk shapes of the render path and at R=8192."""
   from nerfds_torch.kernels import composite
@@ -93,8 +125,9 @@ def phase_composite(torch, device):
   # Tolerance: float32; the kernel's sequential running product and sums
   # associate differently from torch.cumprod / torch.sum.
   atol, rtol = 1e-5, 1e-4
-  max_err, main = 0.0, None
-  for num_rays in (4096, 8192):
+  max_err, main, train = 0.0, None, {}
+  # The render chunk (4096 rays) and R=8192, and a 512-ray training batch.
+  for num_rays in (4096, 8192, 512):
     for num_samples in (64, 128):
       args = composite_inputs(torch, num_rays, num_samples, gen, device)
       for at_inf in (True, False):
@@ -108,21 +141,19 @@ def phase_composite(torch, device):
       plain_ms = time_ms(
           torch, lambda: composite.composite_reference(*args), 20)
       print(f'  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+      if num_rays == 512:
+        train[f'train_ms_s{num_samples}'] = ms
+        train[f'train_plain_ms_s{num_samples}'] = plain_ms
+        train[f'train_bound_ms_s{num_samples}'] = composite_bound(
+            num_rays, num_samples)[0]
       if (num_rays, num_samples) == (4096, 128):
-        r, s = num_rays, num_samples
-        # Each input read once, each output written once, float32.
-        nbytes = 4 * (r * s * 3 + r * s + r * s + r * 3
-                      + r * 3 + r + r + 3 * r * s)
-        flops = 12 * r * s
-        bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S,
-                             flops / PEAK_F32_FLOP_PER_S)
+        bound_ms, bound_by = composite_bound(num_rays, num_samples)
         main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by='bytes' if nbytes / PEAK_BYTES_PER_S
-                    >= flops / PEAK_F32_FLOP_PER_S else 'operations')
+                    bound_by=bound_by)
   return dict(name='composite_fwd', route='cuda',
               source='nerfds_torch/kernels/csrc/composite.cu',
               replaces='nerfds_tpu/pallas/composite.py:49',
-              max_abs_err=max_err, library_ms=None, **main)
+              max_abs_err=max_err, library_ms=None, **main, **train)
 
 
 def nerf_ds_trunk(torch, device, seed):
@@ -157,16 +188,45 @@ def trunk_flops(spec) -> int:
   return 2 * (fwd + rev)
 
 
+def trunk_fwd_bound(spec, weights, n: int):
+  """(ms, what bounds it) of K1f on N rows: its operations at f32 peak, or
+  feat, the weights and the five outputs moved once."""
+  flops = n * trunk_flops(spec)
+  n_weights = sum(w.numel() + b.numel() for w, b in weights.layers) + \
+      sum(t.numel() for t in (*weights.head, *weights.bottleneck))
+  nbytes = 4 * (n * spec.in_dim + n_weights + n * (
+      1 + spec.norm_dim + 2 * spec.width + spec.in_dim))
+  t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+  print(f'  K1f bound at N={n}: {flops / 1e12:.4f} TFLOP, '
+        f'{nbytes / 1e6:.1f} MB, {1e3 * max(t_ops, t_bytes):.3f} ms')
+  return 1e3 * max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else \
+      'bytes'
+
+
+def mlp_forward_bound(depth: int, width: int, skips, in_dim: int, n: int):
+  """(TFLOP, ms, what bounds it) of K3 (fused_mlp_forward, not ported) on a
+  relu stack at the render trunk's shape: its multiply-adds at f32 peak,
+  or the input read and the output written once."""
+  n_skips = len([i for i in skips if i])
+  macs = in_dim * width + (depth - 1) * width * width + n_skips * in_dim * width
+  flops = 2 * n * macs
+  nbytes = 4 * n * (in_dim + width)
+  t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+  return flops / 1e12, 1e3 * max(t_ops, t_bytes), (
+      'operations' if t_ops >= t_bytes else 'bytes')
+
+
 def phase_fused_trunk(torch, device):
   from nerfds_torch.kernels import fused_trunk
   print('== K1f fused_trunk_fwd vs plain version')
   spec, weights = nerf_ds_trunk(torch, device, seed=1)
   names = ('sigma', 'normal', 'trunk_out', 'bottleneck', 'g')
-  max_err, main = 0.0, None
+  max_err, main, train = 0.0, None, {}
   with torch.no_grad():
-    # The coarse and fine shapes of a 4096-ray chunk, R=8192 fine, and a
-    # ragged count (the last 32-row tile is partial).
-    for n in (4096 * 64, 4096 * 128, 8192 * 128, 4099):
+    # The coarse and fine shapes of a 4096-ray render chunk, R=8192 fine,
+    # those of a 512-ray training batch, and a ragged count (the last
+    # 32-row tile is partial).
+    for n in (4096 * 64, 4096 * 128, 8192 * 128, 512 * 64, 512 * 128, 4099):
       gen = torch.Generator(device=device).manual_seed(n)
       feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
       got = fused_trunk.trunk_sigma_grad(feat, weights, spec)
@@ -189,22 +249,184 @@ def phase_fused_trunk(torch, device):
       plain_ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_reference(
           feat, weights, spec), 3, warmup=1)
       print(f'  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
+      if n in (512 * 64, 512 * 128):
+        train[f'train_ms_n{n}'] = ms
+        train[f'train_plain_ms_n{n}'] = plain_ms
+        train[f'train_bound_ms_n{n}'] = trunk_fwd_bound(spec, weights, n)[0]
       if n == 4096 * 128:
-        flops = n * trunk_flops(spec)
-        n_weights = sum(w.numel() + b.numel() for w, b in weights.layers) + \
-            sum(t.numel() for t in (*weights.head, *weights.bottleneck))
-        nbytes = 4 * (n * spec.in_dim + n_weights + n * (
-            1 + spec.norm_dim + 2 * spec.width + spec.in_dim))
-        t_ops = flops / PEAK_F32_FLOP_PER_S
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        main = dict(ms=ms, plain_ms=plain_ms,
-                    bound_ms=1e3 * max(t_ops, t_bytes),
-                    bound_by='operations' if t_ops >= t_bytes else 'bytes')
-        print(f'  {flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB at N={n}')
+        bound_ms, bound_by = trunk_fwd_bound(spec, weights, n)
+        main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
       del feat
   return dict(name='fused_trunk_fwd', route='cuda',
               source='nerfds_torch/kernels/csrc/fused_trunk_fwd.cu',
               replaces='nerfds_tpu/pallas/fused_trunk.py:252',
+              max_abs_err=max_err, library_ms=None, **main, **train)
+
+
+def trunk_bwd_flops(spec) -> int:
+  """Operations of one row of K1b, counted from _bwd_kernel: the forward
+  recompute, the tangent sweep, the first-order reverse sweep and the two
+  weight-grad contractions are one trunk each; the g-path sweep skips the
+  input rows; then the head and the bottleneck. Two per multiply-add."""
+  w, d = spec.width, spec.in_dim
+  n_skips = len([i for i in spec.skips if i])
+  trunk = d * w + (spec.depth - 1) * w * w + n_skips * d * w
+  r_g = (spec.depth - 1) * w * w
+  hcu = spec.alpha_channels + spec.norm_dim
+  head = 2 * w * hcu + w
+  bneck = 2 * w * w if spec.has_bottleneck else 0
+  return 2 * (5 * trunk + r_g + head + bneck)
+
+
+def kink_flip(torch, fused_trunk, feat, cots, weights, spec, got_x):
+  """Explains the kernel's feat_bar ``got_x`` [1, D] of the one-row
+  ``feat`` and ``cots`` as the exact (float64) result with every relu mask
+  as it falls, or with one mask flipped at a unit whose pre-activation lies
+  within 1e-4 of 0 (the 16 nearest), where float32 rounding may put it on
+  the other side. Returns |a| of the flipped unit (0.0 for none), or None
+  when no such result matches within atol 1e-4 + rtol 1e-4.
+
+  feat_bar depends on the forward values only through the masks, so a mask
+  is flipped by moving that unit's bias by -2a."""
+  f64 = lambda ts: tuple(t.double() if t is not None else None for t in ts)
+  w64 = fused_trunk.TrunkWeights(
+      layers=[f64(layer) for layer in weights.layers],
+      head=f64(weights.head),
+      bottleneck=(f64(weights.bottleneck) if weights.bottleneck is not None
+                  else None))
+  x, c64, got = feat.double(), f64(cots), got_x.double()
+  pre, h = [], x
+  for i, (w, b) in enumerate(w64.layers):
+    a = (h @ w[:spec.width] + x @ w[spec.width:] + b if spec.is_skip(i)
+         else h @ w + b)
+    pre.append(a[0])
+    h = torch.relu(a)
+  near = sorted((abs(a[u].item()), i, u) for i, a in enumerate(pre)
+                for u in torch.nonzero(a.abs() < 1e-4).flatten().tolist())
+  for size, i, u in [(0.0, None, None), *near[:16]]:
+    layers = list(w64.layers)
+    if i is not None:
+      w, b = layers[i]
+      b = b.clone()
+      b[u] -= 2 * pre[i][u]
+      layers[i] = (w, b)
+    want = fused_trunk.trunk_sigma_grad_backward_reference(
+        x, w64._replace(layers=layers), spec, c64)[0]
+    if bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()):
+      return size
+  return None
+
+
+def phase_fused_trunk_bwd(torch, device):
+  """K1b against its plain version at the training shapes (coarse and fine
+  rows of a 512-ray batch) and a ragged N; two launches must agree bit for
+  bit."""
+  from nerfds_torch.kernels import fused_trunk
+  print('== K1b fused_trunk_bwd vs plain version')
+  spec, weights = nerf_ds_trunk(torch, device, seed=2)
+  flat_names = [f'{k}{i}' for i in range(spec.depth) for k in ('dW', 'db')]
+  flat_names += ['bottleneck_dW', 'bottleneck_db', 'head_dW', 'head_db']
+  max_err, main = 0.0, None
+  with torch.no_grad():
+    for n in K1B_SIZES:
+      gen = torch.Generator(device=device).manual_seed(n + 1)
+      feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
+      cots = tuple(torch.randn(n, c, generator=gen, device=device)
+                   for c in (1, spec.norm_dim, spec.width, spec.width,
+                             spec.in_dim))
+      got_x, got_w = fused_trunk.trunk_sigma_grad_backward(
+          feat, weights, spec, cots)
+      again_x, again_w = fused_trunk.trunk_sigma_grad_backward(
+          feat, weights, spec, cots)
+      want_x, want_w = fused_trunk.trunk_sigma_grad_backward_reference(
+          feat, weights, spec, cots)
+      torch.cuda.synchronize()
+      got = [got_x, *fused_trunk._flatten(got_w)]
+      again = [again_x, *fused_trunk._flatten(again_w)]
+      same = all(torch.equal(a, b) for a, b in zip(got, again))
+      print(f' N={n}: repeat launch bit-identical: {same}')
+      if not same:
+        raise AssertionError('K1b: two launches on the same inputs differ')
+      # A row whose pre-activation lies within rounding of 0 may take the
+      # other side of a relu kink in the kernel's recompute than in cuBLAS,
+      # which moves that row's feat_bar and its share of every grad sum.
+      # Every row whose feat_bar is beyond atol 1e-4 + rtol 1e-4 must be
+      # the exact result with one mask flipped at such a unit (kink_flip);
+      # such rows may be at most 1e-3 of N, none at a ragged N and none in
+      # the last 32-row block. With their cotangents zeroed they add
+      # nothing to any output, and then everything must agree tightly.
+      err = (got_x - want_x).abs()
+      bad = (err > 1e-4 + 1e-4 * want_x.abs()).any(-1)
+      rows = torch.nonzero(bad).flatten().tolist()
+      flips = [kink_flip(torch, fused_trunk, feat[r:r + 1],
+                         tuple(c[r:r + 1] for c in cots), weights, spec,
+                         got_x[r:r + 1]) for r in rows]
+      last_block = (n - 1) // K1B_BLOCK_ROWS * K1B_BLOCK_ROWS
+      print(f'  feat_bar: max_abs_err {err.max().item():.3e}; rows beyond '
+            f'tolerance {len(rows)} of {n}: {rows[:12]}; |a| of the relu '
+            f'flipped there: {flips[:12]}')
+      max_err = max(max_err, err.max().item())
+      if None in flips:
+        raise AssertionError(
+            f'K1b feat_bar: rows {[r for r, f in zip(rows, flips) if f is None]}'
+            ' match no result with at most one relu flipped near a kink')
+      if (len(rows) > 1e-3 * n or (rows and n % K1B_BLOCK_ROWS)
+          or any(r >= last_block for r in rows)):
+        raise AssertionError(f'K1b feat_bar: rows {rows} beyond tolerance')
+      rel_all = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+                 for g, w in zip(got[1:], fused_trunk._flatten(want_w))]
+      print(f'  worst grad |got - want| / |want| with those rows: '
+            f'{max(rel_all):.3e}')
+      keep = (~bad).float()[:, None]
+      cots = tuple(c * keep for c in cots)
+      got_x, got_w = fused_trunk.trunk_sigma_grad_backward(
+          feat, weights, spec, cots)
+      want_x, want_w = fused_trunk.trunk_sigma_grad_backward_reference(
+          feat, weights, spec, cots)
+      got = [got_x, *fused_trunk._flatten(got_w)]
+      want = [want_x, *fused_trunk._flatten(want_w)]
+      worst = 0.0
+      for name, g, w in zip(['feat_bar', *flat_names], got, want):
+        if not bool(torch.isfinite(g).all()):
+          raise AssertionError(f'K1b {name}: non-finite values')
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        max_err = max(max_err, (g - w).abs().max().item())
+        # Tolerance relative to the tensor's norm: float32 sums over N rows
+        # in another order than cuBLAS.
+        if rel > 1e-5:
+          raise AssertionError(f'K1b {name}: |got - want| / |want| = '
+                               f'{rel:.2e} > 1e-5 without the kink rows')
+      print(f'  without them, worst |got - want| / |want| over feat_bar '
+            f'and {len(flat_names)} grads: {worst:.3e}')
+      del got, again, want, got_w, again_w, want_w, err, bad
+      if n == TRAIN_BATCH * 128:  # the fine level's rows
+        ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
+            feat, weights, spec, cots), 3, warmup=1)
+        plain_ms = time_ms(
+            torch, lambda: fused_trunk.trunk_sigma_grad_backward_reference(
+                feat, weights, spec, cots), 3, warmup=1)
+        flops = n * trunk_bwd_flops(spec)
+        n_weights = sum(w.numel() + b.numel() for w, b in weights.layers) + \
+            sum(t.numel() for t in (*weights.head, *weights.bottleneck))
+        # Inputs feat and the five cotangents, outputs feat_bar; the
+        # weights read once and their grads written once.
+        nbytes = 4 * (n * (2 * spec.in_dim + 1 + spec.norm_dim
+                           + 2 * spec.width + spec.in_dim) + 2 * n_weights)
+        t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+        main = dict(ms=ms, plain_ms=plain_ms,
+                    bound_ms=1e3 * max(t_ops, t_bytes),
+                    bound_by='operations' if t_ops >= t_bytes else 'bytes')
+        print(f'  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+              f'{main["bound_ms"]:.3f} ms ({flops / 1e12:.4f} TFLOP, '
+              f'{nbytes / 1e6:.1f} MB)')
+        profile_device(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
+            feat, weights, spec, cots), f'K1b at N={n}', top=4)
+      del feat, cots
+  return dict(name='fused_trunk_bwd', route='cuda',
+              source='nerfds_torch/kernels/csrc/fused_trunk_bwd.cu',
+              replaces='nerfds_tpu/pallas/fused_trunk.py:295',
               max_abs_err=max_err, library_ms=None, **main)
 
 
@@ -324,6 +546,181 @@ def phase_render(torch, device, kernel_names, size=128, chunk=4096):
   return launches
 
 
+def phase_train(torch, device):
+  """The slice's main path: the full-width nerf_ds() trained through
+  Trainer.from_experiment(...).train() on the synthetic scene, with
+  'fused' ∇σ (K1f forward, K1b backward) and kernel compositing (K2).
+  Then, from one state and one batch, the gradients of the kernel path
+  against the plain path ('vmap', plain compositing), and steady step
+  times of both paths in turns."""
+  import dataclasses
+  import numpy as np
+  from nerfds_torch import config as config_lib
+  from nerfds_torch import kernels
+  from nerfds_torch.datasets import SyntheticDataSource, sample_batch
+  from nerfds_torch.models import NerfDSModel
+  from nerfds_torch.trainer import Trainer
+  from nerfds_torch.training import step as step_lib
+  steps, batch_size = TRAIN_STEPS, TRAIN_BATCH
+  print(f'== train: nerf_ds() at full width, batch {batch_size}, {steps} '
+        'steps')
+  cfg = dataclasses.replace(config_lib.nerf_ds(), use_pallas_compositing=True,
+                            sigma_gradient_mode='fused')
+  plain_cfg = dataclasses.replace(cfg, use_pallas_compositing=False,
+                                  sigma_gradient_mode='vmap')
+  train_cfg = dataclasses.replace(
+      config_lib.nerf_ds_train_config(batch_size=batch_size), print_every=1)
+  start = time.perf_counter()
+  source = SyntheticDataSource(num_frames=8, image_size=64)
+  trainer = Trainer.from_experiment(cfg, train_cfg, source, use_mesh=False)
+  store = trainer.build_store()
+  print(f'  set-up (ground truth, model, store of {store.num_rays} rays): '
+        f'{time.perf_counter() - start:.2f} s')
+
+  losses = []
+  kernels.reset_launch_counts()
+  state = trainer.train(num_steps=steps, log_fn=lambda step, log: (
+      losses.append(log['stats']['fine']['loss/rgb'])))
+  torch.cuda.synchronize()
+  launches = dict(kernels.launch_counts)
+  print(f'  launches over {steps} steps: {launches}')
+  for name, per_step in (('fused_trunk_fwd', 2), ('fused_trunk_bwd', 2),
+                         ('composite_fwd', 2)):
+    if launches[name] != per_step * steps:
+      raise AssertionError(f'{name} launched {launches[name]} times in '
+                           f'{steps} steps, want {per_step} a step')
+  if not (len(losses) == steps and np.isfinite(losses).all()):
+    raise AssertionError(f'training losses: {losses}')
+  print(f'  fine rgb loss: first 4 steps {np.mean(losses[:4]):.5f}, last 4 '
+        f'{np.mean(losses[-4:]):.5f} ({losses[0]:.5f} -> {losses[-1]:.5f})')
+
+  # Gradients of both paths from the trained state and one batch, drawing
+  # the same stratified samples.
+  plain = NerfDSModel(plain_cfg, num_warp_embeds=trainer.model.num_warp_embeds,
+                      num_hyper_embeds=trainer.model.num_hyper_embeds,
+                      near=trainer.model.near, far=trainer.model.far,
+                      device=device)
+  scalars = step_lib.eval_schedules(step_lib.build_schedules(train_cfg),
+                                    state.step)
+  gen = lambda: torch.Generator(device=device).manual_seed(123)
+  batch = sample_batch(store, gen(), batch_size)
+  got, got_stats = step_lib._grads(
+      step_lib.make_loss_fn(trainer.model, train_cfg), state.params, batch,
+      gen(), scalars)
+  want, want_stats = step_lib._grads(
+      step_lib.make_loss_fn(plain, train_cfg), state.params, batch, gen(),
+      scalars)
+  torch.cuda.synchronize()
+  rels = {k: ((got[k] - w).norm() / w.norm().clamp_min(1e-30)).item()
+          for k, w in want.items()}
+  worst = max(rels, key=rels.get)
+  print(f'  gradients, kernel vs plain path, |got - want| / |want| over '
+        f'{len(rels)} tensors: worst {rels[worst]:.3e} ({worst}), median '
+        f'{float(np.median(list(rels.values()))):.3e}')
+  for k in ('loss/total', 'loss/rgb', 'loss/norm_diff'):
+    print(f'  fine {k}: kernel {float(got_stats["fine"][k]):.7f}, plain '
+          f'{float(want_stats["fine"][k]):.7f}')
+  # Tolerance relative to each tensor's norm: float32 sums in another order
+  # than cuBLAS, and sample rows whose relu pre-activation lies within
+  # rounding of 0 may take the other side of the kink (see K1b).
+  for k, rel in rels.items():
+    if not rel <= 1e-3:
+      raise AssertionError(f'gradient {k}: |got - want| / |want| = {rel:.2e}')
+  del got, want
+
+  def timed(step_fn, n):
+    run_state = state
+    g = torch.Generator(device=device)
+    for i in range(2):  # warm-up
+      g.manual_seed(10_000 + i)
+      run_state, _ = step_fn(run_state, g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(n):
+      g.manual_seed(20_000 + i)
+      run_state, _ = step_fn(run_state, g)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n, (
+        torch.cuda.max_memory_allocated() / 2**30)
+
+  kernel_step = step_lib.make_fused_train_step(trainer.model, train_cfg, store)
+  plain_step = step_lib.make_fused_train_step(plain, train_cfg, store)
+  runs = {'kernel': [], 'plain': []}
+  for name in ('kernel', 'plain', 'plain', 'kernel'):
+    runs[name].append(timed(kernel_step if name == 'kernel' else plain_step,
+                            TRAIN_TIMED_STEPS))
+  out = {}
+  for name, rs in runs.items():
+    sec = [r[0] for r in rs]
+    out[name] = dict(step_ms=1e3 * float(np.mean(sec)),
+                     rays_per_s=batch_size / float(np.mean(sec)),
+                     peak_gib=max(r[1] for r in rs))
+    print(f'  {name} path: steps of {", ".join(f"{1e3 * x:.1f}" for x in sec)}'
+          f' ms -> {out[name]["rays_per_s"]:.0f} training rays/s, peak '
+          f'{out[name]["peak_gib"]:.2f} GiB')
+  for name, step_fn in (('kernel', kernel_step), ('plain', plain_step)):
+    g = torch.Generator(device=device)
+    g.manual_seed(30_000)
+    box = [step_fn(state, g)[0]]
+
+    def one_step(step_fn=step_fn, g=g, box=box):
+      box[0] = step_fn(box[0], g)[0]
+
+    profile_device(torch, one_step, f'{name}-path training step')
+    syncs = host_syncs(torch, one_step)
+    out[name]['host_syncs'] = sum(syncs.values())
+    print(f'  host synchronisations in one {name}-path step: '
+          f'{sum(syncs.values())}, at {syncs}')
+  return launches, out
+
+
+def host_syncs(torch, fn):
+  """Calls ``fn`` once under CUDA's sync debug mode and counts the calls
+  that made the host wait for the card, by the line of Python that made
+  them."""
+  import collections
+  import warnings
+  torch.cuda.synchronize()
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter('always')
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+      fn()
+    finally:
+      torch.cuda.set_sync_debug_mode('default')
+  return dict(collections.Counter(
+      f'{"/".join(w.filename.split("/")[-2:])}:{w.lineno}' for w in caught
+      if 'synchroniz' in str(w.message)))
+
+
+def profile_device(torch, fn, name, n=2, top=8):
+  """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler), and
+  the device's idle share of their wall time with the profiler on."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(n):
+      fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+  # Kernels and copies on the card only: an operator's row repeats the
+  # device time of the kernels it launched.
+  events = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+  busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+  print(f'  profile, {name}: {wall_ms:.2f} ms a call with the profiler on, '
+        f'device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}'
+        f', {sum(e.count for e in events) // n} device ops a call; by device '
+        'time:')
+  for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+    print(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms {e.count // n:5d}x '
+          f'{e.key[:80]}')
+
+
 def main() -> int:
   import torch
   line = card_line()
@@ -349,7 +746,21 @@ def main() -> int:
   launches = phase_render(torch, device, [r['name'] for r in results])
   for r in results:
     r['launches'] = launches[r['name']]
+  results.append(phase_fused_trunk_bwd(torch, device))
+  tflop, k3_ms, k3_by = mlp_forward_bound(8, 256, (4,), 52, 4096 * 128)
+  print(f'== K3 fused_mlp_forward (not ported): bound at the render trunk\'s '
+        f'shape (8x256, skip 4, N=524288): {tflop:.4f} TFLOP, {k3_ms:.3f} ms, '
+        f'{k3_by}')
+  train_launches, train = phase_train(torch, device)
+  for r in results:
+    r['launches_train'] = train_launches[r['name']]
+    r['launches_per_train_step'] = train_launches[r['name']] / TRAIN_STEPS
+  results[-1]['launches'] = train_launches['fused_trunk_bwd']
   print(json.dumps({'kernels': results}))
+  print(f'training at batch {TRAIN_BATCH}, steady steps: ' + '; '.join(
+      f'{name} path {t["rays_per_s"]} rays/s, {t["step_ms"]} ms a step, peak '
+      f'{t["peak_gib"]} GiB, {t["host_syncs"]} host syncs a step'
+      for name, t in train.items()))
   print(f'card: {card_line()}')
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

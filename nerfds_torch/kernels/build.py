@@ -3,10 +3,11 @@ it with ``ctypes``.
 
 Each ``.cu`` file is compiled by its own ``nvcc`` process, all started
 together, then linked into ``build/libnerfds_kernels_<hash>.so``; the hash
-covers the sources and flags, so an edited source never loads a stale
-library. The sources expose a plain C interface (pointers, ints, the
-stream), so no PyTorch header is compiled. Nothing here runs at import
-time: the first wrapper call on a CUDA tensor builds and loads.
+covers the sources, the ``.cuh`` headers beside them and the flags, so an
+edited source never loads a stale library. The sources expose a plain C
+interface (pointers, ints, the stream), so no PyTorch header is compiled.
+Nothing here runs at import time: the first wrapper call on a CUDA tensor
+builds and loads.
 """
 from __future__ import annotations
 
@@ -32,6 +33,10 @@ SIGNATURES = {
                       _I, _I, _I, ctypes.c_float, _P],
     'fused_trunk_fwd': [_P, ctypes.POINTER(ctypes.c_uint64), _I, _I, _I,
                         ctypes.c_uint, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    'fused_trunk_bwd': [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_uint64),
+                        ctypes.POINTER(ctypes.c_uint64), _P, _I, _I, _I,
+                        ctypes.c_uint, _I, _I, _I, _I, ctypes.c_long, _P, _P,
+                        _P, _P],
 }
 
 
@@ -46,8 +51,9 @@ def nvcc_path() -> str:
 
 
 def _digest(sources) -> str:
+  """Hash of the flags, the sources and the headers they include."""
   h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-  for s in sources:
+  for s in [*sources, *sorted(CSRC.glob('*.cuh'))]:
     h.update(s.name.encode())
     h.update(s.read_bytes())
   return h.hexdigest()[:16]

@@ -1,17 +1,28 @@
-"""NeRF trunk forward with ∂σ/∂feat (K1f): CUDA kernel and its plain version.
+"""NeRF trunk with ∂σ/∂feat: the forward (K1f) and its hand-derived
+backward (K1b), CUDA kernels and their plain versions.
 
-Counterpart of the forward half of ``nerfds_tpu/pallas/fused_trunk.py``.
-One call returns σ, the predicted normal, the trunk output, the bottleneck
-and g = ∂σ/∂feat, so the per-point ∇σ is the feature path's pullback of g
-(``models/nerfds.py``, ``sigma_gradient_mode='fused'``). The kernel is
-``csrc/fused_trunk_fwd.cu``; ``trunk_sigma_grad_reference`` is the same
-function in plain PyTorch: a forward that keeps the relu masks, then the
-reverse sweep seeded with the σ column of the head. ``trunk_sigma_grad``
-takes the plain version only for CPU tensors and the kernel for CUDA
-tensors.
+Counterpart of ``nerfds_tpu/pallas/fused_trunk.py``. One forward call
+returns σ, the predicted normal, the trunk output, the bottleneck and
+g = ∂σ/∂feat, so the per-point ∇σ is the feature path's pullback of g
+(``models/nerfds.py``, ``sigma_gradient_mode='fused'``).
 
-Forward only: no autograd rule is attached. The hand-derived backward
-(the JAX package's ``_bwd_kernel``) comes with the training path.
+* K1f, ``csrc/fused_trunk_fwd.cu``; plain version
+  ``trunk_sigma_grad_reference``: a forward that keeps the relu masks, then
+  the reverse sweep seeded with the σ column of the head.
+* K1b, ``csrc/fused_trunk_bwd.cu``; plain version
+  ``trunk_sigma_grad_backward_reference``: given the cotangents
+  (σ̄, n̄, T̄, B̄, Ḡ) it returns feat̄ and every weight and bias grad,
+  including the second-order terms of Ḡ·g. Because relu'' = 0 a.e., g is
+  bilinear in the weights for a fixed mask pattern: with τ the forward
+  tangent sweep seeded with Ḡ at every input injection and c_g the
+  w_σ-seeded reverse sweep, ∂(Ḡ·g)/∂W_i = τ_{i-1}ᵀ c_g,i,
+  ∂(Ḡ·g)/∂w_σ = Σ_rows τ_L and ∂(Ḡ·g)/∂feat = 0.
+
+``trunk_sigma_grad`` is differentiable through ``TrunkSigmaGrad``, whose
+forward is K1f and backward K1b. Both take the plain versions only for CPU
+tensors and the kernels for CUDA tensors. The Function needs no double
+backward: g is an output of its forward, and the outer backward reaches
+the small MLPs' second-order terms through autograd of the feature path.
 """
 from __future__ import annotations
 
@@ -24,11 +35,17 @@ import torch
 from nerfds_torch import kernels
 from nerfds_torch.kernels import build
 
-# Limits compiled into csrc/fused_trunk_fwd.cu.
+# Limits compiled into csrc/fused_trunk_fwd.cu and csrc/fused_trunk_bwd.cu.
 KERNEL_WIDTH = 256
 KERNEL_MAX_IN_DIM = 64
 KERNEL_MAX_DEPTH = 16
 KERNEL_MAX_HEAD = 8
+# The backward passes its table of grads as one kernel parameter, which
+# bounds its depth.
+KERNEL_BWD_MAX_DEPTH = 12
+# Rows of the weight-grad reduction's fixed split (csrc/fused_trunk_bwd.cu).
+KERNEL_BWD_SPLIT_ROWS = 4096
+KERNEL_BWD_MAX_SPLITS = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +75,9 @@ class TrunkWeights(NamedTuple):
 
 Outputs = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor,
                 torch.Tensor, torch.Tensor]
+# (σ̄ [N, 1], n̄ [N, norm_dim] or None, T̄ [N, W], B̄ [N, W], Ḡ [N, D]).
+Cotangents = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor,
+                   torch.Tensor, torch.Tensor]
 
 
 def trunk_sigma_grad_reference(feat: torch.Tensor, weights: TrunkWeights,
@@ -101,6 +121,77 @@ def trunk_sigma_grad_reference(feat: torch.Tensor, weights: TrunkWeights,
   return sigma, norm, h, bneck, g
 
 
+def trunk_sigma_grad_backward_reference(
+    feat: torch.Tensor, weights: TrunkWeights, spec: TrunkSpec,
+    cots: Cotangents) -> Tuple[torch.Tensor, TrunkWeights]:
+  """(feat̄ [N, D], grads shaped as ``weights``) of the forward's outputs
+  against the cotangents ``cots``, with the sweeps of the JAX package's
+  ``_bwd_kernel``. ``B̄`` reaches the bottleneck only: a caller without one
+  folds ``B̄`` into ``T̄`` first (``TrunkSigmaGrad`` does).
+  """
+  sbar, nbar, tbar, bbar, gbar = cots
+  w_of = lambda i: weights.layers[i][0]
+  # Forward recompute; zin_i is layer i's input (h_{i-1}, or feat at 0).
+  hs, masks = [], []
+  h = feat
+  for i, (w, b) in enumerate(weights.layers):
+    if spec.is_skip(i):
+      a = h @ w[:spec.width] + feat @ w[spec.width:] + b
+    else:
+      a = h @ w + b
+    masks.append((a > 0).to(feat.dtype))
+    h = torch.relu(a)
+    hs.append(h)
+  h_last = hs[-1]
+  # Tangent sweep seeded with Ḡ at every input injection.
+  taus, tau = [], None
+  for i in range(spec.depth):
+    w = w_of(i)
+    if i == 0:
+      tau = gbar @ w
+    elif spec.is_skip(i):
+      tau = tau @ w[:spec.width] + gbar @ w[spec.width:]
+    else:
+      tau = tau @ w
+    tau = tau * masks[i]
+    taus.append(tau)
+  # Head: the cotangent of [σ, normal], the reverse seed r, head grads.
+  head_w, _ = weights.head
+  n_used = spec.alpha_channels + spec.norm_dim
+  head_bar = torch.cat([sbar, nbar], -1) if spec.norm_dim > 0 else sbar
+  r = tbar + head_bar @ head_w[:, :n_used].T
+  bn_grads = None
+  if weights.bottleneck is not None:
+    r = r + bbar @ weights.bottleneck[0].T
+    bn_grads = (h_last.T @ bbar, bbar.sum(0))
+  head_dw = torch.zeros_like(head_w)
+  head_dw[:, :n_used] = h_last.T @ head_bar
+  head_dw[:, 0] += taus[-1].sum(0)  # ∂(Ḡ·g)/∂w_σ
+  head_db = torch.zeros_like(weights.head[1])
+  head_db[:n_used] = head_bar.sum(0)
+  # The first-order sweep r and the w_σ-seeded g-path sweep r_g, together.
+  r_g = head_w[:, 0].expand(feat.shape[0], spec.width)
+  layer_grads = [None] * spec.depth
+  xbar = torch.zeros_like(feat)
+  for i in range(spec.depth - 1, -1, -1):
+    w = w_of(i)
+    c1, cg = r * masks[i], r_g * masks[i]
+    zin = feat if i == 0 else hs[i - 1]
+    tin = gbar if i == 0 else taus[i - 1]
+    dw = zin.T @ c1 + tin.T @ cg
+    if spec.is_skip(i):
+      dw = torch.cat([dw, feat.T @ c1 + gbar.T @ cg], 0)
+    layer_grads[i] = (dw, c1.sum(0))
+    if i == 0:
+      xbar = xbar + c1 @ w.T
+    else:
+      if spec.is_skip(i):
+        xbar = xbar + c1 @ w[spec.width:].T
+      r, r_g = c1 @ w[:spec.width].T, cg @ w[:spec.width].T
+  return xbar, TrunkWeights(layers=layer_grads, head=(head_dw, head_db),
+                            bottleneck=bn_grads)
+
+
 def _check(feat: torch.Tensor, weights: TrunkWeights, spec: TrunkSpec):
   if feat.dim() != 2 or feat.shape[1] != spec.in_dim:
     raise ValueError(f'feat must be [N, {spec.in_dim}], got '
@@ -140,16 +231,12 @@ def _check_kernel_limits(spec: TrunkSpec, head_cols: int):
         f'got {spec}')
 
 
-def _launch(feat: torch.Tensor, weights: TrunkWeights,
-            spec: TrunkSpec) -> Outputs:
-  """Runs ``csrc/fused_trunk_fwd.cu`` on the current stream."""
-  head_w, head_b = (t.contiguous() for t in weights.head)
-  hc = head_w.shape[1]
-  _check_kernel_limits(spec, hc)
-  n, d = feat.shape
-  feat = feat.contiguous()
-  # Per layer: forward weights [in, out] and their transposes [out, in], so
-  # that both the forward and the reverse sweep read contiguous rows.
+def _layer_operands(weights: TrunkWeights, spec: TrunkSpec):
+  """(tensors to keep alive, five pointers per trunk layer).
+
+  Per layer: forward weights [in, out] and their transposes [out, in], so
+  that both the forward and the reverse sweeps read contiguous rows.
+  """
   keep, ptrs = [], []
   for i, (w, b) in enumerate(weights.layers):
     if spec.is_skip(i):
@@ -163,15 +250,33 @@ def _launch(feat: torch.Tensor, weights: TrunkWeights,
     layer = (wf_h, wf_x, wr_h, wr_x, b.contiguous())
     keep.extend(t for t in layer if t is not None)
     ptrs.extend(t.data_ptr() if t is not None else 0 for t in layer)
+  return keep, ptrs
+
+
+def _check_aligned(tensors):
+  for t in tensors:
+    if t is not None and t.data_ptr() % 16:
+      raise ValueError('fused trunk operands must be 16-byte aligned')
+
+
+def _stream(device):
+  return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(feat: torch.Tensor, weights: TrunkWeights,
+            spec: TrunkSpec) -> Outputs:
+  """Runs ``csrc/fused_trunk_fwd.cu`` on the current stream."""
+  head_w, head_b = (t.contiguous() for t in weights.head)
+  hc = head_w.shape[1]
+  _check_kernel_limits(spec, hc)
+  n, d = feat.shape
+  feat = feat.contiguous()
+  keep, ptrs = _layer_operands(weights, spec)
   bn = (tuple(t.contiguous() for t in weights.bottleneck)
         if weights.bottleneck is not None else (None, None))
   for t in (head_w, head_b, *bn):
     ptrs.append(t.data_ptr() if t is not None else 0)
-    if t is not None:
-      keep.append(t)
-  for t in keep:
-    if t.data_ptr() % 16:
-      raise ValueError('fused trunk operands must be 16-byte aligned')
+  _check_aligned([*keep, head_w, head_b, *bn])
 
   new = lambda *shape: torch.empty(shape, device=feat.device,
                                    dtype=torch.float32)
@@ -184,24 +289,180 @@ def _launch(feat: torch.Tensor, weights: TrunkWeights,
   ptr_array = (ctypes.c_uint64 * len(ptrs))(*ptrs)
   lib = build.load_library()
   with torch.cuda.device(feat.device):
-    stream = torch.cuda.current_stream(feat.device).cuda_stream
     rc = lib.fused_trunk_fwd(
         feat.data_ptr(), ptr_array, n, d, spec.depth, skip_bits, hc,
         spec.norm_dim, int(spec.has_bottleneck), sigma.data_ptr(),
         norm.data_ptr() if norm is not None else 0, trunk.data_ptr(),
-        bneck.data_ptr(), g.data_ptr(), stream)
+        bneck.data_ptr(), g.data_ptr(), _stream(feat.device))
   build.check(rc, 'fused_trunk_fwd')
   kernels.launch_counts['fused_trunk_fwd'] += 1
   return sigma, norm, trunk, bneck, g
 
 
+def backward_splits(n: int) -> int:
+  """Row splits of the backward's weight-grad reduction: a function of N
+  alone, so that two launches on the same inputs sum in the same order."""
+  return max(1, min(KERNEL_BWD_MAX_SPLITS,
+                    -(-n // KERNEL_BWD_SPLIT_ROWS)))
+
+
+def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
+                     spec: TrunkSpec, cots: Cotangents
+                     ) -> Tuple[torch.Tensor, TrunkWeights]:
+  """Runs ``csrc/fused_trunk_bwd.cu`` on the current stream: the sweeps,
+  then the weight-grad reduction in a fixed order."""
+  head_w = weights.head[0].contiguous()
+  hc = head_w.shape[1]
+  _check_kernel_limits(spec, hc)
+  if spec.depth > KERNEL_BWD_MAX_DEPTH:
+    raise ValueError(f'the CUDA trunk backward takes depth <= '
+                     f'{KERNEL_BWD_MAX_DEPTH}, got {spec.depth}')
+  n, d = feat.shape
+  hcu = spec.alpha_channels + spec.norm_dim
+  sbar, nbar, tbar, bbar, gbar = cots
+  dev = feat.device
+  feat, tbar, gbar = (t.contiguous() for t in (feat, tbar, gbar))
+  head_cot = (torch.cat([sbar, nbar], -1) if spec.norm_dim > 0
+              else sbar).contiguous()
+  bbar = bbar.contiguous() if spec.has_bottleneck else None
+  keep, ptrs = _layer_operands(weights, spec)
+  # Transposed head (its used columns) and bottleneck for the seed of r.
+  wa_t = head_w[:, :hcu].T.contiguous()
+  wb_t = (weights.bottleneck[0].T.contiguous() if spec.has_bottleneck
+          else None)
+  for t in (head_w, wa_t, wb_t):
+    ptrs.append(t.data_ptr() if t is not None else 0)
+  _check_aligned([*keep, head_w, wa_t, wb_t, feat, head_cot, tbar, bbar,
+                  gbar])
+
+  zeros = lambda t: torch.zeros_like(t, memory_format=torch.contiguous_format)
+  grads = TrunkWeights(
+      layers=[(zeros(w), zeros(b)) for w, b in weights.layers],
+      head=(zeros(weights.head[0]), zeros(weights.head[1])),
+      bottleneck=(tuple(zeros(t) for t in weights.bottleneck)
+                  if spec.has_bottleneck else None))
+  xbar = torch.empty(n, d, device=dev, dtype=torch.float32)
+  if n == 0:
+    return xbar, grads
+  gptrs = []
+  for dw, db in (*grads.layers, grads.bottleneck or (None, None), grads.head):
+    gptrs.extend(t.data_ptr() if t is not None else 0 for t in (dw, db))
+  # One partial sum per split for every grad element that the kernel
+  # computes (the head's used columns only).
+  per_split = sum(w.numel() + b.numel() for w, b in weights.layers)
+  if spec.has_bottleneck:
+    per_split += sum(t.numel() for t in weights.bottleneck)
+  per_split += (spec.width + 1) * hcu
+  splits = backward_splits(n)
+  # e0: the unit column that adds Σ_rows τ_L into the σ column of the head.
+  e0 = torch.zeros(n, hcu, device=dev, dtype=torch.float32)
+  e0[:, 0] = 1.0
+  # Device-memory scratch of the sweeps: h_i, τ_i, c1_i and c_g,i for every
+  # layer, 4·depth·N·W float32 (2.1 GB at depth 8, N = 65,536).
+  scratch = torch.empty(4 * spec.depth * n * spec.width, device=dev,
+                        dtype=torch.float32)
+  partials = torch.empty(splits * per_split, device=dev,
+                         dtype=torch.float32)
+  skip_bits = sum(1 << i for i in spec.skips)
+  wptr_array = (ctypes.c_uint64 * len(ptrs))(*ptrs)
+  gptr_array = (ctypes.c_uint64 * len(gptrs))(*gptrs)
+  lib = build.load_library()
+  with torch.cuda.device(dev):
+    rc = lib.fused_trunk_bwd(
+        feat.data_ptr(), head_cot.data_ptr(), tbar.data_ptr(),
+        bbar.data_ptr() if bbar is not None else 0, gbar.data_ptr(),
+        wptr_array, gptr_array, e0.data_ptr(), n, d, spec.depth, skip_bits,
+        hc, hcu, int(spec.has_bottleneck), splits, per_split,
+        xbar.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
+        _stream(dev))
+  build.check(rc, 'fused_trunk_bwd')
+  kernels.launch_counts['fused_trunk_bwd'] += 1
+  return xbar, grads
+
+
+def _dispatch(feat, kernel, plain, *args):
+  if feat.device.type == 'cuda':
+    return kernel(feat, *args)
+  if feat.device.type == 'cpu':
+    return plain(feat, *args)
+  raise ValueError(f'no fused trunk path for device {feat.device}')
+
+
+def trunk_sigma_grad_forward(feat: torch.Tensor, weights: TrunkWeights,
+                             spec: TrunkSpec) -> Outputs:
+  """The forward on feat's device, without autograd: the kernel for CUDA
+  tensors, the plain version for CPU tensors."""
+  _check(feat, weights, spec)
+  return _dispatch(feat, _launch, trunk_sigma_grad_reference, weights, spec)
+
+
+def trunk_sigma_grad_backward(feat: torch.Tensor, weights: TrunkWeights,
+                              spec: TrunkSpec, cots: Cotangents
+                              ) -> Tuple[torch.Tensor, TrunkWeights]:
+  """The backward on feat's device: the kernel for CUDA tensors, the plain
+  version for CPU tensors. See :func:`trunk_sigma_grad_backward_reference`.
+  """
+  _check(feat, weights, spec)
+  cols = {'σ̄': spec.alpha_channels, 'n̄': spec.norm_dim, 'T̄': spec.width,
+          'B̄': spec.width, 'Ḡ': spec.in_dim}
+  for (name, c), t in zip(cols.items(), cots):
+    if name == 'n̄' and spec.norm_dim == 0:
+      continue
+    if (tuple(t.shape) != (feat.shape[0], c) or t.dtype != torch.float32
+        or t.device != feat.device):
+      raise ValueError(f'{name}: {tuple(t.shape)} {t.dtype} on {t.device}; '
+                       f'want ({feat.shape[0]}, {c}) float32')
+  return _dispatch(feat, _launch_backward,
+                   trunk_sigma_grad_backward_reference, weights, spec, cots)
+
+
+def _flatten(weights: TrunkWeights):
+  """Trunk layers, then the bottleneck, then the head: (kernel, bias) each."""
+  pairs = [*weights.layers, *([weights.bottleneck] if weights.bottleneck
+                              is not None else []), weights.head]
+  return [t for pair in pairs for t in pair]
+
+
+def _unflatten(flat, spec: TrunkSpec) -> TrunkWeights:
+  pairs = [tuple(flat[i:i + 2]) for i in range(0, len(flat), 2)]
+  return TrunkWeights(layers=pairs[:spec.depth], head=pairs[-1],
+                      bottleneck=pairs[spec.depth] if spec.has_bottleneck
+                      else None)
+
+
+class TrunkSigmaGrad(torch.autograd.Function):
+  """The trunk with ∂σ/∂feat under autograd: forward K1f, backward K1b."""
+
+  @staticmethod
+  def forward(ctx, feat, spec, *flat):
+    ctx.spec = spec
+    ctx.save_for_backward(feat, *flat)
+    return trunk_sigma_grad_forward(feat, _unflatten(flat, spec), spec)
+
+  @staticmethod
+  @torch.autograd.function.once_differentiable
+  def backward(ctx, sbar, nbar, tbar, bbar, gbar):
+    feat, *flat = ctx.saved_tensors
+    spec = ctx.spec
+    zeros = lambda c: torch.zeros(feat.shape[0], c, device=feat.device,
+                                  dtype=feat.dtype)
+    sbar = zeros(spec.alpha_channels) if sbar is None else sbar
+    nbar = (None if spec.norm_dim == 0 else
+            zeros(spec.norm_dim) if nbar is None else nbar)
+    tbar = zeros(spec.width) if tbar is None else tbar
+    bbar = zeros(spec.width) if bbar is None else bbar
+    gbar = zeros(spec.in_dim) if gbar is None else gbar
+    if not spec.has_bottleneck:
+      # The bottleneck output is the trunk output: fold its cotangent in.
+      tbar, bbar = tbar + bbar, torch.zeros_like(bbar)
+    xbar, grads = trunk_sigma_grad_backward(
+        feat, _unflatten(flat, spec), spec, (sbar, nbar, tbar, bbar, gbar))
+    return (xbar, None, *_flatten(grads))
+
+
 def trunk_sigma_grad(feat: torch.Tensor, weights: TrunkWeights,
                      spec: TrunkSpec) -> Outputs:
-  """The forward on feat's device: the kernel for CUDA tensors, the plain
-  version for CPU tensors. See :func:`trunk_sigma_grad_reference`."""
-  _check(feat, weights, spec)
-  if feat.device.type == 'cuda':
-    return _launch(feat, weights, spec)
-  if feat.device.type == 'cpu':
-    return trunk_sigma_grad_reference(feat, weights, spec)
-  raise ValueError(f'no fused trunk path for device {feat.device}')
+  """(σ, normal, trunk_out, bottleneck, g) on feat's device, differentiable
+  in feat and every weight (:class:`TrunkSigmaGrad`). See
+  :func:`trunk_sigma_grad_reference` for the outputs."""
+  return TrunkSigmaGrad.apply(feat, spec, *_flatten(weights))

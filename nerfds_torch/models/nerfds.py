@@ -320,21 +320,23 @@ class NerfDSModel(nn.Module):
                       extra_params, use_warp):
     """σ_raw, aux and ∂σ/∂p for every point.
 
-    In the caller's no-grad mode everything comes back detached; with grad
-    on, 'vmap' keeps the graph of ∇σ (create_graph) and 'fused' raises,
-    since the trunk kernel's backward is not ported yet. The gradient is
-    taken with respect to a separate leaf ``p``, so it reaches neither the
-    mask path nor ``pts`` itself.
+    In the caller's no-grad mode everything comes back detached. With grad
+    on, ∇σ keeps its graph (second order), so a loss on it reaches every
+    parameter upstream: 'vmap' takes autograd of Σσ with create_graph;
+    'fused' runs the trunk through ``fused_trunk.TrunkSigmaGrad`` (forward
+    K1f, backward K1b) on the feature path's output ``feat`` itself, and
+    pulls g back through the feature path with create_graph, so the outer
+    backward reaches Ḡ in K1b and the small MLPs' second-order terms.
+
+    The gradient is taken with respect to a separate leaf
+    ``p = pts.detach()``, so it reaches neither the mask path nor ``pts``.
+    That leaf cuts only ∂/∂origins: no parameter lies upstream of ``pts``,
+    since the fine z values are stop-gradiented (``ops/sampling.py``).
     """
     outer_grad = torch.is_grad_enabled()
     mode = self.config.sigma_gradient_mode
     if mode == 'fused' and self.config.activation != 'relu':
       mode = 'vmap'  # as the JAX package does: the kernel is relu-only
-    if mode == 'fused' and outer_grad:
-      raise NotImplementedError(
-          "sigma_gradient_mode='fused' runs without autograd: the trunk "
-          "kernel's backward is not ported yet (ROADMAP.md, queue 2). "
-          'Call under torch.no_grad().')
     p = pts.detach().requires_grad_()
     nerf = self.nerf[level]
     if mode == 'fused':
@@ -344,8 +346,9 @@ class NerfDSModel(nn.Module):
         parts, aux = feat_fn(p)
         feat = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
       sigma_2d, norm, trunk_out, bottleneck, g = fused_trunk.trunk_sigma_grad(
-          feat.detach(), nerf.trunk_weights(), self.trunk_spec(feat.shape[-1]))
-      (grad_pts,) = torch.autograd.grad(feat, p, grad_outputs=g)
+          feat, nerf.trunk_weights(), self.trunk_spec(feat.shape[-1]))
+      (grad_pts,) = torch.autograd.grad(feat, p, grad_outputs=g,
+                                        create_graph=outer_grad)
       aux.update(trunk_out=trunk_out, bottleneck=bottleneck, norm=norm)
       sigma_raw = sigma_2d[..., 0]
     else:
@@ -535,6 +538,11 @@ class NerfDSModel(nn.Module):
     return out
 
   # -- full forward ---------------------------------------------------------
+
+  def forward(self, rays: Dict[str, Any], extra_params, **kwargs):
+    """:meth:`render`, so ``torch.func.functional_call`` can run the model
+    on a parameter dict (``training/step.py``)."""
+    return self.render(rays, extra_params, **kwargs)
 
   def render(self, rays: Dict[str, Any], extra_params, *,
              generator: Optional[torch.Generator] = None, use_warp=True,

@@ -1,11 +1,8 @@
 """The port's kernels: their plain PyTorch versions against the JAX
 package's Pallas kernels (interpret mode on the CPU, as the JAX package's
-own kernel tests run them), the wrappers' routing, and, on a CUDA card, the
-kernels against their plain versions.
-
-The tests marked ``cuda`` need an NVIDIA GPU with ``nvcc``; here they skip.
-Run them on the card with ``python -m pytest tests/test_torch_kernels.py
--m cuda``.
+own kernel tests run them), the backward's autograd Function, and the
+wrappers' routing. The kernels themselves are held against their plain
+versions on the card by ``tests/test_torch_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -163,42 +160,88 @@ def test_fused_trunk_wrapper_checks_inputs():
       tft._check_kernel_limits(tspec, 4)
 
 
-@pytest.fixture
-def cuda():
-  if not torch.cuda.is_available():
-    pytest.skip('needs an NVIDIA GPU with nvcc')
-  return torch.device('cuda')
+def trunk_cotangents(spec, n, seed, only_gbar=False):
+  """Seeded cotangents (σ̄, n̄, T̄, B̄, Ḡ) as numpy; n̄ is [N, 1] zeros
+  without a normal, as the JAX kernel takes it."""
+  rng = np.random.RandomState(seed)
+  cols = (1, max(spec.norm_dim, 1), spec.width, spec.width, spec.in_dim)
+  cots = [rng.randn(n, c).astype(np.float32) for c in cols]
+  if spec.norm_dim == 0:
+    cots[1][:] = 0.0
+  if only_gbar:
+    cots[:4] = [np.zeros_like(c) for c in cots[:4]]
+  return cots
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('sample_at_infinity', [True, False])
-def test_composite_kernel_matches_plain_on_card(cuda, sample_at_infinity):
-  args = [t(a).to(cuda) for a in composite_inputs(num_rays=1000,
-                                                  num_samples=128)]
-  before = kernels.launch_counts['composite_fwd']
-  got = tcomposite.composite_forward(*args, sample_at_infinity)
-  want = tcomposite.composite_reference(*args, sample_at_infinity)
-  assert kernels.launch_counts['composite_fwd'] == before + 1
-  for g, w in zip(got, want):
-    torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+def to_port_cots(cots, spec):
+  sbar, nbar, tbar, bbar, gbar = map(t, cots)
+  return sbar, nbar if spec.norm_dim > 0 else None, tbar, bbar, gbar
 
 
-@pytest.mark.cuda
-def test_fused_trunk_kernel_matches_plain_on_card(cuda):
-  gen = torch.Generator().manual_seed(0)
-  tm = NerfMLP(52, 0, 0, True, trunk_depth=8, trunk_width=256, skips=(4,),
-               predict_norm=True, generator=gen).to(cuda)
-  spec = tft.TrunkSpec(depth=8, width=256, skips=(4,), in_dim=52,
-                       alpha_channels=1, norm_dim=3, has_bottleneck=True)
-  feat = torch.rand(4099, 52, generator=gen).to(cuda) * 2 - 1
+@pytest.mark.parametrize('norm_dim,has_bottleneck,only_gbar', [
+    (3, True, False), (0, False, False), (3, False, False), (0, True, False),
+    (3, True, True)])
+def test_fused_trunk_backward_plain_matches_pallas(norm_dim, has_bottleneck,
+                                                   only_gbar):
+  # N = 37 on a 16-row tile: a padded tail on the Pallas side. only_gbar
+  # leaves Ḡ alone nonzero, so the second-order terms are tested alone.
+  params, jspec, tm, tspec, feat = trunk_case(norm_dim=norm_dim,
+                                              has_bottleneck=has_bottleneck)
+  cots = trunk_cotangents(tspec, len(feat), seed=5, only_gbar=only_gbar)
+  want_x, want_w = jft._pallas_backward(
+      jnp.asarray(feat), jft.trunk_params_flat(jspec, params),
+      tuple(map(jnp.asarray, cots)), jspec, 16, True, jnp.float32)
   with torch.no_grad():
-    before = kernels.launch_counts['fused_trunk_fwd']
-    got = tft.trunk_sigma_grad(feat, tm.trunk_weights(), spec)
-    want = tft.trunk_sigma_grad_reference(feat, tm.trunk_weights(), spec)
-  assert kernels.launch_counts['fused_trunk_fwd'] == before + 1
-  for name, g, w in zip(('sigma', 'normal', 'trunk', 'bneck'), got, want):
-    torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
-  # g follows the relu masks; a pre-activation within rounding of 0 may
-  # fall on the other side of the kink in the two versions.
-  bad = ((got[4] - want[4]).abs() > 1e-4 + 1e-4 * want[4].abs()).float()
-  assert bad.mean().item() <= 1e-3
+    got_x, got_w = tft.trunk_sigma_grad_backward(
+        t(feat), tm.trunk_weights(), tspec, to_port_cots(cots, tspec))
+  got_flat = tft._flatten(got_w)
+  assert len(got_flat) == len(want_w)
+  if only_gbar:
+    # ∂(Ḡ·g)/∂feat = 0 and no bias sees Ḡ; the kernels' grads do.
+    assert float(got_x.abs().max()) == 0.0
+    assert float(got_flat[0].abs().max()) > 0.0
+  # Tolerance: float32 matmuls of XLA and of torch sum in another order.
+  np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), rtol=1e-4,
+                             atol=1e-5)
+  for i, (g, w) in enumerate(zip(got_flat, want_w)):
+    np.testing.assert_allclose(g.numpy(), np.asarray(w).reshape(g.shape),
+                               rtol=1e-4, atol=1e-5, err_msg=f'grad {i}')
+
+
+@pytest.mark.parametrize('norm_dim,has_bottleneck', [(3, True), (0, False)])
+def test_trunk_sigma_grad_function_matches_double_autograd(norm_dim,
+                                                           has_bottleneck):
+  """TrunkSigmaGrad's backward (K1b's plain version) against torch's own
+  double autograd of the forward's plain version, g included."""
+  _, _, tm, tspec, feat = trunk_case(n=21, norm_dim=norm_dim,
+                                     has_bottleneck=has_bottleneck, seed=2)
+  proj = [t(c) for c in trunk_cotangents(tspec, 21, seed=9)]
+
+  def loss(outs):
+    sigma, norm, trunk_out, bneck, g = outs
+    out = ((proj[0] * sigma).sum() + (proj[2] * torch.tanh(trunk_out)).sum()
+           + (proj[3] * bneck).sum() + (proj[4] * torch.sin(g)).sum())
+    return out + (proj[1] * norm).sum() if norm is not None else out
+
+  weights = tm.trunk_weights()
+  leaves = [t(feat).requires_grad_(), *tft._flatten(weights)]
+  got = torch.autograd.grad(
+      loss(tft.trunk_sigma_grad(leaves[0], weights, tspec)), leaves)
+  want = torch.autograd.grad(
+      loss(tft.trunk_sigma_grad_reference(leaves[0], weights, tspec)),
+      leaves)
+  for i, (g, w) in enumerate(zip(got, want)):
+    torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=f'leaf {i}')
+
+
+def test_trunk_sigma_grad_function_refuses_double_backward():
+  """The CUDA backward's outputs carry no graph, so a second derivative
+  through TrunkSigmaGrad raises on every device, the CPU included."""
+  _, _, tm, tspec, feat = trunk_case(n=9, seed=3)
+  x = t(feat).requires_grad_()
+  sigma = tft.trunk_sigma_grad(x, tm.trunk_weights(), tspec)[0]
+  # σ̄ = c requires grad, so feat̄ = ∂(c·σ)/∂x has a derivative in c.
+  c = torch.ones_like(sigma, requires_grad=True)
+  (gx,) = torch.autograd.grad((c * sigma).sum(), x, create_graph=True)
+  with pytest.raises(RuntimeError, match='once_differentiable'):
+    gx.sum().backward()

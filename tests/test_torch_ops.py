@@ -67,6 +67,24 @@ def test_normalize_and_safe_norm_values_and_grads():
   assert keep.shape == (9, 1)
 
 
+@pytest.mark.parametrize('keepdims', [False, True])
+def test_safe_norm_second_derivative_matches_jax(keepdims):
+  """The double backward keeps the ∂‖x‖/∂x term at both keepdims values
+  (JAX's custom_jvp differentiates its own rule at every order)."""
+  x = np.random.RandomState(4).randn(7, 3).astype(np.float32)
+
+  def jax_outer(v):
+    g = jax.grad(lambda u: jnp.sum(jmath.safe_norm(u, keepdims=keepdims)))(v)
+    return jnp.sum(g ** 2) + jnp.sum(g[:, 0])
+
+  want = jax.grad(jax_outer)(jnp.asarray(x))
+  xt = t(x).requires_grad_()
+  (g,) = torch.autograd.grad(tmath.safe_norm(xt, keepdims=keepdims).sum(),
+                             xt, create_graph=True)
+  (got,) = torch.autograd.grad((g ** 2).sum() + g[:, 0].sum(), xt)
+  close(got, want, atol=1e-5)
+
+
 def _screw_inputs(seed=2, n=11):
   rng = np.random.RandomState(seed)
   w_raw = rng.randn(n, 3).astype(np.float32) * 0.7

@@ -146,11 +146,33 @@ def test_toy_warp_has_no_zero_screw_row(models):
   assert float(screw.theta.min()) > 0
 
 
-def test_fused_mode_refuses_autograd(models):
+def test_fused_render_backpropagates_like_vmap(models):
+  """Under autograd, 'fused' (the trunk Function, K1b's plain version)
+  gives the parameter grads of 'vmap' for a loss that reads ∇σ."""
   _, _, tmodel = models
-  with pytest.raises(NotImplementedError, match='no_grad'):
-    tmodel.render(to_torch(make_rays(2)), torch_extra(tmodel.config),
-                  compute_sigma_gradient=True)
+  vmap_model = TorchModel(
+      dataclasses.replace(tmodel.config, sigma_gradient_mode='vmap',
+                          use_pallas_compositing=False),
+      num_warp_embeds=NUM_EMBEDS, num_hyper_embeds=NUM_EMBEDS, device='cpu')
+  vmap_model.load_state_dict(tmodel.state_dict())
+  rays = to_torch(make_rays(6, seed=5))
+
+  def grads(model):
+    out = model.render(rays, torch_extra(model.config),
+                       compute_sigma_gradient=True)
+    loss = sum((o['rgb'] ** 2).mean()
+               + (o['target_norm'] * o['predicted_norm']).sum()
+               for o in out.values())
+    return dict(zip([n for n, _ in model.named_parameters()],
+                    torch.autograd.grad(loss, list(model.parameters()))))
+
+  got, want = grads(tmodel), grads(vmap_model)
+  assert float(got['nerf.fine.trunk.hidden_0.kernel'].abs().max()) > 0
+  # Tolerance relative to each tensor's norm: float32, the two modes sum
+  # the same products in another order.
+  for name, w in want.items():
+    rel = float((got[name] - w).norm() / w.norm().clamp_min(1e-12))
+    assert rel < 1e-4, (name, rel)
 
 
 def test_render_image_padded_chunks_match_jax(models):
