@@ -15,15 +15,24 @@
 5. K1b, the trunk's hand-derived backward: kernel against its plain version
    at the training shapes and a ragged N; two launches must give the same
    bits.
-6. Trains the full-width ``nerf_ds()`` on the synthetic scene for 24 steps
+6. K3, the whole-MLP forward: kernel against its plain version at every
+   ``nerf_ds()`` MLP shape (the NeRF trunk also at a render chunk's sample
+   rows), a ragged N, N = 0, each activation and bf16 compute.
+7. Trains the full-width ``nerf_ds()`` on the synthetic scene for 24 steps
    at batch 512 through ``Trainer.train`` (K1f, K1b and K2 twice a step,
    checked), compares the kernel path's gradients with the plain path's,
    and times and profiles steady steps of both paths, counting the host's
    waits on the card in one step of each.
-7. Prints one JSON line describing every kernel ("launches": the render's
-   count for K1f and K2, the training run's for K1b; "launches_train" for
-   all three), a line of the training numbers, the card's line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+8. The held-out evaluation path at full width: the train CLI with an
+   experiment directory, resumed from its checkpoint, then the eval CLI
+   (K2 on every eval chunk, K1f never); ``eval_psnr`` of the restored state
+   on the kernel and plain paths; K3 through ``fused_apply`` on every MLP
+   of the restored model, fed what each received in one render chunk.
+9. Prints one JSON line describing every kernel ("launches": the render's
+   count for K1f and K2, the training run's for K1b, the eval path's for
+   K3; "launches_render" and "launches_train" for all four), a line of the
+   training numbers, a line of the eval numbers, the card's line, and as
+   the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and convolutions, so every plain version
 runs in full float32 like the kernels. Exits nonzero at the first failure.
@@ -48,6 +57,12 @@ TRAIN_TIMED_STEPS = 6
 # nerfds_torch/kernels/csrc/trunk_tile.cuh).
 K1B_SIZES = (TRAIN_BATCH * 64, TRAIN_BATCH * 128, 4099)
 K1B_BLOCK_ROWS = 32
+# K3's check: the render chunk's sample rows (4096 rays x 128 samples), a
+# ragged N (the last 32-row tile is partial) and none.
+K3_SIZES = (4096 * 128, 4099, 0)
+# The eval phase: the train CLI's first run and the step its second resumes
+# to.
+EVAL_STEPS = (24, 30)
 
 
 def card_line() -> str:
@@ -87,7 +102,8 @@ def compare(torch, name, got, want, atol, rtol, max_bad_frac=0.0):
   if not bool(torch.isfinite(got).all()):
     raise AssertionError(f'{name}: non-finite values')
   err = (got - want).abs()
-  bad = (err > atol + rtol * want.abs()).float().mean().item()
+  bad = ((err > atol + rtol * want.abs()).float().mean().item()
+         if err.numel() else 0.0)
   max_err = err.max().item() if err.numel() else 0.0
   print(f'  {name}: max_abs_err {max_err:.3e}, beyond tolerance '
         f'{bad:.2e} (allowed {max_bad_frac:.0e})')
@@ -203,17 +219,117 @@ def trunk_fwd_bound(spec, weights, n: int):
       'bytes'
 
 
-def mlp_forward_bound(depth: int, width: int, skips, in_dim: int, n: int):
-  """(TFLOP, ms, what bounds it) of K3 (fused_mlp_forward, not ported) on a
-  relu stack at the render trunk's shape: its multiply-adds at f32 peak,
-  or the input read and the output written once."""
-  n_skips = len([i for i in skips if i])
-  macs = in_dim * width + (depth - 1) * width * width + n_skips * in_dim * width
+def mlp_forward_bound(layers, n: int):
+  """(TFLOP, ms, what bounds it) of K3 on N rows of an MLP given as its
+  ``[(W, b), ...]``: its multiply-adds (W's rows times columns a layer) at
+  f32 peak, or the input, the weights and the output moved once."""
+  macs = sum(w.shape[0] * w.shape[1] for w, _ in layers)
   flops = 2 * n * macs
-  nbytes = 4 * n * (in_dim + width)
+  n_weights = sum(w.numel() + b.numel() for w, b in layers)
+  in_dim = layers[0][0].shape[0]  # without a skip at layer 0
+  nbytes = 4 * (n * (in_dim + layers[-1][0].shape[1]) + n_weights)
   t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
   return flops / 1e12, 1e3 * max(t_ops, t_bytes), (
       'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def nerf_ds_mlps(torch, device, seed):
+  """Every MLP stack of the full-width nerf_ds() model (the mask MLP, the
+  SE(3) trunk, the hyper sheet, and the NeRF trunk, σ/normal head and rgb
+  branch of one level), every layer glorot-initialised so that no output
+  sits near 0 by its head's tiny init."""
+  from nerfds_torch import config as config_lib
+  from nerfds_torch.models import NerfDSModel
+  from nerfds_torch.models.mlp import MLP, glorot_uniform
+  gen = torch.Generator().manual_seed(seed)
+  model = NerfDSModel(config_lib.nerf_ds(), num_warp_embeds=8,
+                      generator=gen, device='cpu')
+  mlps = {name: m for name, m in model.named_modules()
+          if isinstance(m, MLP) and not name.startswith('nerf.fine')}
+  for m in mlps.values():
+    for p in m.parameters():
+      if p.dim() == 2:
+        glorot_uniform(p, gen)
+      else:
+        with torch.no_grad():
+          p.uniform_(-0.1, 0.1, generator=gen)
+  return {name: m.to(device) for name, m in mlps.items()}
+
+
+def phase_fused_mlp(torch, device):
+  """K3 against its plain version at every nerf_ds() MLP shape (the NeRF
+  trunk also at the render chunk's sample rows), a ragged N and N = 0,
+  each activation, and bf16 compute."""
+  from nerfds_torch.kernels import fused_mlp
+  from nerfds_torch.models.mlp import MLP
+  print('== K3 fused_mlp_fwd vs plain version')
+  mlps = nerf_ds_mlps(torch, device, seed=3)
+  # Five small stacks with each activation, hidden and output.
+  for act in ('relu', 'sigmoid', 'softplus', 'tanh', None):
+    gen = torch.Generator().manual_seed(4)
+    mlps[f'act={act}'] = MLP(52, 3, 128, (2,), act or 'none',
+                             output_channels=3, output_activation=act,
+                             generator=gen).to(device)
+  max_err, main = 0.0, None
+  with torch.no_grad():
+    for name, mlp in mlps.items():
+      layers, has_out = fused_mlp.mlp_params_to_layers(mlp, None)
+      sizes = K3_SIZES if name == 'nerf.coarse.trunk' else K3_SIZES[1:]
+      for n in sizes:
+        gen = torch.Generator(device=device).manual_seed(n + 5)
+        x = torch.rand(n, mlp.in_dim, generator=gen, device=device) * 2 - 1
+        got = fused_mlp.fused_apply(mlp, None, x)
+        want = fused_mlp.fused_mlp_reference(
+            x, layers, mlp.skips, mlp.hidden_activation,
+            mlp.output_activation, has_out)
+        torch.cuda.synchronize()
+        print(f' {name} ({mlp.depth}x{mlp.width}, skips {mlp.skips}, '
+              f'{mlp.in_dim} in, {tuple(got.shape)[1]} out) N={n}')
+        # Tolerance: float32 sums in another order than cuBLAS (as the
+        # JAX package's own test of this kernel, 1e-5). Where a relu
+        # pre-activation lies within rounding of 0 the two versions may
+        # take the other side of the kink, as in K1f's check: up to 1e-3
+        # of the elements of a relu stack may exceed the tolerance.
+        relu = 'relu' in (mlp.hidden_activation, mlp.output_activation)
+        max_err = max(max_err, compare(torch, 'out', got, want, 1e-5, 1e-5,
+                                       1e-3 if relu else 0.0))
+        if n == K3_SIZES[0]:
+          ms = time_ms(torch, lambda: fused_mlp.fused_apply(mlp, None, x),
+                       5, warmup=1)
+          plain_ms = time_ms(torch, lambda: fused_mlp.fused_mlp_reference(
+              x, layers, mlp.skips, mlp.hidden_activation,
+              mlp.output_activation, has_out), 5, warmup=1)
+          tflop, bound_ms, bound_by = mlp_forward_bound(layers, n)
+          main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by)
+          print(f'  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+                f'{bound_ms:.3f} ms ({tflop:.4f} TFLOP, {bound_by})')
+        del x, got, want
+    # bf16 compute. Tolerance: bf16 keeps 8 significant bits. The kernel's
+    # f32 sums differ from cuBLAS's in the last bits, so a sum that lies
+    # near a bf16 rounding boundary rounds the other way (one bf16 ulp,
+    # 2^-8 to 2^-7 of the value) and the later layers carry the flip on:
+    # 2^-6 of each element and of the output's largest magnitude is 2 to 4
+    # ulps (measured on the CPU with float64 against float32 sums: at most
+    # 2^-8 of the largest magnitude).
+    for name in ('nerf.coarse.trunk', 'nerf.coarse.rgb', 'mask_mlp.mlp',
+                 'act=sigmoid', 'act=softplus'):
+      mlp = mlps[name]
+      layers, has_out = fused_mlp.mlp_params_to_layers(mlp, None)
+      gen = torch.Generator(device=device).manual_seed(6)
+      x = torch.rand(4099, mlp.in_dim, generator=gen, device=device) * 2 - 1
+      got = fused_mlp.fused_apply(mlp, None, x, compute_dtype=torch.bfloat16)
+      want = fused_mlp.fused_mlp_reference(
+          x, layers, mlp.skips, mlp.hidden_activation, mlp.output_activation,
+          has_out, compute_dtype=torch.bfloat16)
+      torch.cuda.synchronize()
+      print(f' {name} bf16 compute, N=4099')
+      scale = want.abs().max().item()
+      compare(torch, 'out', got, want, 2 ** -6 * scale, 2 ** -6)
+  return dict(name='fused_mlp_fwd', route='cuda',
+              source='nerfds_torch/kernels/csrc/fused_mlp_fwd.cu',
+              replaces='nerfds_tpu/pallas/fused_mlp.py:48',
+              max_abs_err=max_err, library_ms=None, **main)
 
 
 def phase_fused_trunk(torch, device):
@@ -675,6 +791,175 @@ def phase_train(torch, device):
   return launches, out
 
 
+def eval_launches_check(launches, chunks: int):
+  """K2 twice an eval chunk (coarse and fine); K1f, K1b and K3 never: eval
+  renders skip ∇σ, and no model path calls K3."""
+  want = {'composite_fwd': 2 * chunks, 'fused_trunk_fwd': 0,
+          'fused_trunk_bwd': 0, 'fused_mlp_fwd': 0}
+  if launches != want:
+    raise AssertionError(f'eval launches {launches}, want {want}')
+
+
+def phase_eval(torch, device):
+  """The slice's path at full width: the train CLI with an experiment
+  directory (24 steps, checkpoints at 12 and 24), the train CLI again to
+  step 30 (it must resume at 24), and the eval CLI on the latest
+  checkpoint; then eval_psnr of the restored state on the kernel and the
+  plain paths, and against the untrained state; then K3 through
+  fused_apply on every MLP of the restored model, fed the inputs each MLP
+  received in one eval render chunk."""
+  import dataclasses
+  import pathlib
+  import tempfile
+  import numpy as np
+  from nerfds_torch import config as config_lib
+  from nerfds_torch import eval as eval_cli
+  from nerfds_torch import kernels
+  from nerfds_torch import train as train_cli
+  from nerfds_torch import datasets
+  from nerfds_torch.evaluation import render as render_lib
+  from nerfds_torch.kernels import fused_mlp
+  from nerfds_torch.models.mlp import MLP
+  from nerfds_torch.trainer import Trainer, eval_extra_params
+  from nerfds_torch.training.checkpoints import CheckpointManager
+  first, last = EVAL_STEPS
+  print(f'== eval: train CLI to step {first}, resumed to {last}, eval CLI; '
+        'nerf_ds() at full width')
+  out = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    exp = pathlib.Path(tmp) / 'exp'
+    args = ['--preset', 'nerf_ds', '--datasource', 'synthetic', '--exp_dir',
+            str(exp), '--set', 'model.use_pallas_compositing=True', '--set',
+            'model.sigma_gradient_mode=fused', '--batch_size',
+            str(TRAIN_BATCH), '--set', f'train.save_every={first // 2}']
+    start = time.perf_counter()
+    state, metrics = train_cli.main([*args, '--max_steps', str(first)])
+    ckpt = CheckpointManager(exp / 'checkpoints')
+    print(f'  train CLI to step {state.step}: '
+          f'{time.perf_counter() - start:.1f} s, checkpoints '
+          f'{ckpt.all_steps()}, final val metrics {metrics}')
+    if state.step != first or ckpt.all_steps() != [first // 2, first]:
+      raise AssertionError(f'step {state.step}, checkpoints '
+                           f'{ckpt.all_steps()}')
+    kernels.reset_launch_counts()
+    state, metrics = train_cli.main([*args, '--max_steps', str(last)])
+    resumed = dict(kernels.launch_counts)
+    print(f'  train CLI resumed to step {state.step}: launches {resumed}, '
+          f'checkpoints {ckpt.all_steps()}')
+    # K1b runs twice a step: the second run took last - first steps.
+    if (state.step != last or ckpt.all_steps() != [first, last]
+        or resumed['fused_trunk_bwd'] != 2 * (last - first)):
+      raise AssertionError('the train CLI did not resume at its checkpoint')
+    lines = (exp / 'summaries' / 'metrics.jsonl').read_text().splitlines()
+    if [json.loads(x)['step'] for x in lines] != [first, last]:
+      raise AssertionError(f'summaries/metrics.jsonl: {lines}')
+
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    eval_cli.main(['--exp_dir', str(exp), '--eval_once', '--num_val_eval',
+                   '2', '--num_train_eval', '2', '--save_images'])
+    torch.cuda.synchronize()
+    out['eval_cli_s'] = time.perf_counter() - start
+    launches = dict(kernels.launch_counts)
+    report = json.loads((exp / 'metrics' / f'{last}.json').read_text())
+    panels = sorted(p.name for p in (exp / 'renders' / str(last)).rglob(
+        '*.png'))
+    print(f'  eval CLI: {out["eval_cli_s"]:.2f} s, launches {launches}, '
+          f'panels {panels}')
+    for split in ('val', 'train'):
+      print(f'  eval CLI {split}: {report[split]["mean"]}')
+      if len(report[split]['per_item']) != 2 or not all(
+          np.isfinite(m[k]) for m in report[split]['per_item'].values()
+          for k in ('psnr', 'ssim', 'ms_ssim')):
+        raise AssertionError(f'metrics/{last}.json {split}: {report[split]}')
+    if len(panels) != 4:
+      raise AssertionError(f'panels: {panels}')
+    source = datasets.from_config(config_lib.ExperimentConfig(**json.loads(
+      (exp / 'experiment.json').read_text())))
+    eval_launches_check(launches, 4 * -(-source.image_size ** 2 // 8192))
+
+    # eval_psnr of the restored state, kernel path against plain path.
+    train_cfg = config_lib.TrainConfig(**json.loads(
+        (exp / 'train_config.json').read_text()))
+    cfg = config_lib.model_config_from_dict(json.loads(
+        (exp / 'model_config.json').read_text()))
+    trainer = Trainer.from_experiment(cfg, train_cfg, source)
+    plain = Trainer.from_experiment(dataclasses.replace(
+        cfg, use_pallas_compositing=False, sigma_gradient_mode='vmap'),
+        train_cfg, source)
+    restored, step = ckpt.restore(trainer.init_state())
+    trainer.eval_psnr(restored)  # loads the val items' ground truth
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    k_psnr = trainer.eval_psnr(restored)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    eval_launches_check(dict(kernels.launch_counts),
+                        len(source.val_ids) * -(-source.image_size ** 2
+                                                // 8192))
+    out['eval_rays_per_s'] = len(source.val_ids) * source.image_size ** 2 / (
+        seconds)
+    start = time.perf_counter()
+    p_psnr = plain.eval_psnr(restored)
+    torch.cuda.synchronize()
+    out['eval_plain_rays_per_s'] = len(source.val_ids) * (
+        source.image_size ** 2) / (time.perf_counter() - start)
+    diff = abs(k_psnr['psnr'] - p_psnr['psnr'])
+    print(f'  eval_psnr at step {step}: kernel path {k_psnr} '
+          f'({out["eval_rays_per_s"]:.0f} rays/s), plain path {p_psnr} '
+          f'({out["eval_plain_rays_per_s"]:.0f} rays/s); psnr differs by '
+          f'{diff:.2e} dB')
+    if step != last or not diff <= 1e-3:
+      raise AssertionError('eval_psnr: kernel and plain paths differ')
+    ids = source.train_ids[:2]
+    trained = trainer.eval_psnr(restored, item_ids=ids)['psnr']
+    untrained = trainer.eval_psnr(trainer.init_state(train_cfg.random_seed),
+                                  item_ids=ids)['psnr']
+    print(f'  train-split psnr: untrained {untrained:.3f} dB, step {step} '
+          f'{trained:.3f} dB')
+    if not trained > untrained:
+      raise AssertionError('training did not raise the train-split psnr')
+    out.update(val_psnr=k_psnr['psnr'], train_psnr=trained,
+               untrained_train_psnr=untrained)
+
+    # K3 on the restored model: every MLP's input blocks (concatenated) and
+    # output in one render chunk, then fused_apply on each input.
+    model = trainer.model_with_params(restored.params)
+    captured = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, res, name=name: captured.append((
+            name, mod, torch.cat(list(inp[0]), -1) if isinstance(
+                inp[0], (list, tuple)) else inp[0], res)))
+        for name, m in model.named_modules() if isinstance(m, MLP)]
+    item = source.load_item(source.val_ids[0])
+    render_lib.render_image(
+        model, {k: item[k] for k in ('origins', 'directions', 'mask',
+                                     'metadata')},
+        eval_extra_params(cfg, train_cfg, step), chunk=4096, keys=('rgb',),
+        generator=torch.Generator(device=device).manual_seed(0))
+    for h in hooks:
+      h.remove()
+    kernels.reset_launch_counts()
+    got = [fused_mlp.fused_apply(mod, None, x) for _, mod, x, _ in captured]
+    torch.cuda.synchronize()
+    out['k3_launches'] = kernels.launch_counts['fused_mlp_fwd']
+    if out['k3_launches'] != len(captured):
+      raise AssertionError(f'K3 launched {out["k3_launches"]} times for '
+                           f'{len(captured)} MLP calls')
+    print(f'  K3 on the restored model: {len(captured)} MLP calls in one '
+          'render chunk of 4096 rays')
+    for (name, mod, x, want), g in zip(captured, got):
+      ms = time_ms(torch, lambda: fused_mlp.fused_apply(mod, None, x), 3,
+                   warmup=1)
+      print(f'  {name}: {x.shape[0]} rows, {x.shape[1]} in, kernel '
+            f'{ms:.3f} ms')
+      # The render-agreement tolerance: float32 in another order.
+      compare(torch, name, g, want, 1e-4, 1e-4)
+    del captured, got
+  return out
+
+
 def host_syncs(torch, fn):
   """Calls ``fn`` once under CUDA's sync debug mode and counts the calls
   that made the host wait for the card, by the line of Python that made
@@ -747,20 +1032,23 @@ def main() -> int:
   for r in results:
     r['launches'] = launches[r['name']]
   results.append(phase_fused_trunk_bwd(torch, device))
-  tflop, k3_ms, k3_by = mlp_forward_bound(8, 256, (4,), 52, 4096 * 128)
-  print(f'== K3 fused_mlp_forward (not ported): bound at the render trunk\'s '
-        f'shape (8x256, skip 4, N=524288): {tflop:.4f} TFLOP, {k3_ms:.3f} ms, '
-        f'{k3_by}')
+  results.append(phase_fused_mlp(torch, device))
   train_launches, train = phase_train(torch, device)
   for r in results:
+    r['launches_render'] = launches[r['name']]
     r['launches_train'] = train_launches[r['name']]
     r['launches_per_train_step'] = train_launches[r['name']] / TRAIN_STEPS
-  results[-1]['launches'] = train_launches['fused_trunk_bwd']
+  if launches['fused_mlp_fwd'] or train_launches['fused_mlp_fwd']:
+    raise AssertionError('K3 ran on the render or the training path')
+  results[2]['launches'] = train_launches['fused_trunk_bwd']
+  evaluation = phase_eval(torch, device)
+  results[3]['launches'] = evaluation['k3_launches']
   print(json.dumps({'kernels': results}))
   print(f'training at batch {TRAIN_BATCH}, steady steps: ' + '; '.join(
       f'{name} path {t["rays_per_s"]} rays/s, {t["step_ms"]} ms a step, peak '
       f'{t["peak_gib"]} GiB, {t["host_syncs"]} host syncs a step'
       for name, t in train.items()))
+  print('eval: ' + json.dumps(evaluation))
   print(f'card: {card_line()}')
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -127,6 +127,15 @@ class DataSource(abc.ABC):
   def get_time_id(self, item_id) -> int:
     raise NotImplementedError
 
+  def load_points(self, shuffle: bool = False) -> Optional[np.ndarray]:
+    """Background (static) 3D points for the background loss, if any."""
+    return None
+
+  def load_test_cameras(self, count: Optional[int] = None) -> List[Camera]:
+    """Novel-trajectory test cameras; sources without a camera-paths
+    directory have none."""
+    return []
+
   @property
   def embeddings_dict(self) -> Dict[str, List[int]]:
     """Metadata key -> ids over the train items."""

@@ -258,6 +258,9 @@ class SyntheticDataSource(DataSource):
   def _time(self, item_id: str) -> float:
     return int(item_id) / max(self.num_frames, 1)
 
+  # Public alias (normal-fidelity metric needs the frame's scene time).
+  frame_time = _time
+
   def _render(self, item_id: str):
     if item_id not in self._cache:
       camera = self.load_camera(item_id)

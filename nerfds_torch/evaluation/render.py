@@ -44,7 +44,7 @@ DEFAULT_KEYS = ('rgb', 'depth', 'med_depth', 'acc', 'ray_norm',
 
 
 def _tensor(x, device) -> torch.Tensor:
-  t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+  t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
   if t.is_floating_point():
     t = t.float()
   return t.to(device)

@@ -9,7 +9,7 @@ show that a path really went through the kernels.
 from typing import Dict
 
 launch_counts: Dict[str, int] = {'composite_fwd': 0, 'fused_trunk_fwd': 0,
-                                  'fused_trunk_bwd': 0}
+                                  'fused_trunk_bwd': 0, 'fused_mlp_fwd': 0}
 
 
 def reset_launch_counts() -> None:

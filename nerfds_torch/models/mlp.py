@@ -111,6 +111,7 @@ class MLP(nn.Module):
                use_bias: bool = True, hidden_init: Init = glorot_uniform,
                output_init: Optional[Init] = None, generator=None):
     super().__init__()
+    self.in_dim = in_dim
     self.depth, self.width, self.skips = depth, width, tuple(skips)
     self.hidden_activation = hidden_activation
     self.output_channels = output_channels
@@ -187,7 +188,7 @@ class NerfMLP(nn.Module):
   def query_sigma(self, trunk_out, bottleneck, alpha_condition=None):
     alpha_in = ([bottleneck, alpha_condition] if alpha_condition is not None
                 else trunk_out)
-    out = dense_apply(self.alpha.logit, alpha_in)
+    out = self.alpha(alpha_in)
     sigma = out[..., :self.alpha_channels]
     norm = (out[..., self.alpha_channels:self.alpha_channels + self.norm_dim]
             if self.predict_norm else None)

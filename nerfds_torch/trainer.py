@@ -1,25 +1,38 @@
 """Experiment orchestration (L7), counterpart of ``nerfds_tpu/trainer.py``.
 
 Datasource -> ray store on the device -> the fused train step (the
-minibatch gathered on the device) -> stats on logging steps. The store is
-built once per ``Trainer`` and kept. Not ported yet, and raising
-``NotImplementedError`` (ROADMAP.md, queue 1): ``use_mesh=True`` (data
-parallelism), ``sampling='host'`` (``HostRayIterator``), ``exp_dir``
-(checkpoints and the metric writer) and ``eval_psnr``.
+minibatch gathered on the device) -> stats, checkpoints and summaries in
+the experiment directory -> held-out evaluation (``eval_psnr``). The store
+is built once per ``Trainer`` and kept.
+
+With an ``exp_dir`` the trainer writes ``model_config.json`` and
+``train_config.json`` there, restores the latest checkpoint of
+``checkpoints/`` when ``train()`` starts, saves one every ``save_every``
+steps and at the end, and writes the logged stats to ``summaries/``
+(``metrics.jsonl``, and TensorBoard when it imports). Not ported yet, and
+raising ``NotImplementedError`` (ROADMAP.md, queue 1): ``use_mesh=True``
+(data parallelism) and ``sampling='host'`` (``HostRayIterator``).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from nerfds_torch import config as config_lib
 from nerfds_torch.datasets.core import DataSource, RayStore
-from nerfds_torch.models.nerfds import NerfDSModel
-from nerfds_torch.training.step import TrainState, make_fused_train_step
+from nerfds_torch.evaluation import metrics as metrics_lib
+from nerfds_torch.evaluation.render import render_image
+from nerfds_torch.models.nerfds import NerfDSModel, default_extra_params
+from nerfds_torch.training import checkpoints as ckpt_lib
+from nerfds_torch.training.logging import MetricWriter
+from nerfds_torch.training.step import (TrainState, build_schedules,
+                                        eval_schedules, make_fused_train_step)
 
 
 class TimeTracker:
@@ -52,17 +65,34 @@ class TimeTracker:
     self._counts.clear()
 
 
-def _stats_to_host(stats: Dict[str, Any]) -> Dict[str, Any]:
-  """Scalar stats as floats; per-sample arrays ('hist/*') left out."""
-  out = {}
+def _stats_to_host(stats: Dict[str, Any]
+                   ) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
+  """(scalar stats as floats, the per-sample 'hist/*' arrays as numpy under
+  '<level>/<name>')."""
+  scalars, hists = {}, {}
   for k, v in stats.items():
     if isinstance(v, dict):
-      out[k] = _stats_to_host(v)
+      scalars[k], sub = _stats_to_host(v)
+      hists.update({f'{k}/{name}': h for name, h in sub.items()})
     elif k.startswith('hist/'):
-      continue
+      hists[k[5:]] = v.detach().cpu().numpy()
     else:
-      out[k] = float(v)
-  return out
+      scalars[k] = float(v)
+  return scalars, hists
+
+
+def eval_extra_params(model_cfg: config_lib.ModelConfig,
+                      train_cfg: config_lib.TrainConfig,
+                      step: int) -> Dict[str, float]:
+  """The render scalars at ``step``: the annealing schedules evaluated
+  there over ``default_extra_params``, so that a checkpoint renders with
+  the posenc windows it was trained with."""
+  scalars = eval_schedules(build_schedules(train_cfg), step)
+  extra = dict(default_extra_params(model_cfg))
+  for k in ('nerf_alpha', 'warp_alpha', 'hyper_alpha', 'hyper_sheet_alpha',
+            'norm_input_alpha'):
+    extra[k] = scalars[k]
+  return extra
 
 
 @dataclasses.dataclass
@@ -90,10 +120,16 @@ class Trainer:
       raise NotImplementedError(
           f'sampling={self.sampling!r}: only the on-device gather is ported '
           '(HostRayIterator waits); see ROADMAP.md, queue 1')
+    self.ckpt = self.metrics_writer = None
     if self.exp_dir is not None:
-      raise NotImplementedError(
-          'exp_dir: checkpoints and the metric writer are not ported yet; '
-          'see ROADMAP.md, queue 1 item 6')
+      self.exp_dir = Path(self.exp_dir)
+      self.exp_dir.mkdir(parents=True, exist_ok=True)
+      (self.exp_dir / 'model_config.json').write_text(
+          config_lib.to_json(self.model.config))
+      (self.exp_dir / 'train_config.json').write_text(
+          config_lib.to_json(self.train_cfg))
+      self.ckpt = ckpt_lib.CheckpointManager(self.exp_dir / 'checkpoints')
+      self.metrics_writer = MetricWriter(self.exp_dir / 'summaries')
     self._store: Optional[RayStore] = None
 
   # -- setup ----------------------------------------------------------------
@@ -144,13 +180,16 @@ class Trainer:
             store: Optional[RayStore] = None) -> TrainState:
     """Runs steps up to ``num_steps``; ``log_fn(step, {'stats', 'time'})``
     every ``print_every`` steps and at the last. Step k draws its random
-    numbers from a generator seeded with (``random_seed``, k)."""
+    numbers from a generator seeded with (``random_seed``, k), so a run
+    resumed from a checkpoint takes the steps an unbroken run would."""
     cfg = self.train_cfg
     num_steps = num_steps if num_steps is not None else cfg.max_steps
     if store is None:
       store = self.build_store()
     if state is None:
       state = self.init_state(cfg.random_seed)
+    if self.ckpt is not None:
+      state, _ = self.ckpt.restore(state)
     step_fn = make_fused_train_step(self.model, cfg, store)
 
     generator = torch.Generator(device=self.model.device)
@@ -161,16 +200,75 @@ class Trainer:
       generator.manual_seed(base_seed + step)
       state, stats = step_fn(state, generator)
       if (step + 1) % cfg.print_every == 0 or step + 1 == num_steps:
-        stats_host = _stats_to_host(stats)
+        stats_host, hists = _stats_to_host(stats)
         tracker.toc('total')
         if log_fn is not None:
           log_fn(step + 1, {'stats': stats_host, 'time': tracker.summary()})
+        if self.metrics_writer is not None:
+          self._write_summaries(step + 1, state, stats_host, hists,
+                                tracker.summary())
         tracker.reset()
       else:
         tracker.toc('total')
+      if self.ckpt is not None and (step + 1) % cfg.save_every == 0:
+        self.ckpt.save(step + 1, state)
+    if self.ckpt is not None and num_steps % cfg.save_every != 0:
+      self.ckpt.save(num_steps, state)
     return state
 
-  def eval_psnr(self, *args, **kwargs):
-    raise NotImplementedError(
-        'eval_psnr needs evaluation/metrics.py, not ported yet; see '
-        'ROADMAP.md, queue 1 item 7')
+  def _write_summaries(self, step: int, state: TrainState,
+                       stats: Dict[str, Any], hists: Dict[str, np.ndarray],
+                       times: Dict[str, float]) -> None:
+    """Scalars to JSONL (and TensorBoard), the step's 'hist/*' samples and
+    the GLO embedding tables as histograms."""
+    writer = self.metrics_writer
+    writer.write_scalars(step, {'train': stats, 'time': times})
+    for tag, values in hists.items():
+      writer.write_histogram(step, tag, values)
+    for embed_key in ('warp_embed', 'hyper_embed', 'mask_embed'):
+      table = state.params.get(f'{embed_key}.embedding')
+      if table is not None:
+        writer.write_histogram(step, embed_key.replace('_embed', '_embedding'),
+                               table)
+
+  # -- evaluation -----------------------------------------------------------
+
+  def model_with_params(self, params: Dict[str, torch.Tensor]
+                        ) -> NerfDSModel:
+    """A copy of the trainer's model holding ``params``; the trainer's own
+    model keeps its parameters."""
+    model = copy.deepcopy(self.model)
+    model.load_state_dict(params)
+    return model
+
+  def eval_psnr(self, state: TrainState, item_ids=None, chunk: int = 8192,
+                masked: bool = False) -> Dict[str, float]:
+    """Renders held-out views with ``state``'s parameters and returns the
+    mean of the reference's metric set over them.
+
+    The schedules are evaluated at ``state.step``. masked=True adds
+    'masked_psnr': PSNR over the foreground (moving-object) pixels only,
+    where the NeRF-DS phenomenon lives."""
+    if item_ids is None:
+      item_ids = self.datasource.val_ids or self.datasource.train_ids[:1]
+    model = self.model_with_params(state.params)
+    extra = eval_extra_params(model.config, self.train_cfg, state.step)
+    results = []
+    for item_id in item_ids:
+      item = self.datasource.load_item(item_id)
+      rays = {k: item[k] for k in ('origins', 'directions', 'mask',
+                                   'metadata')}
+      out = render_image(
+          model, rays, extra, chunk=chunk, keys=('rgb',),
+          generator=torch.Generator(device=model.device).manual_seed(0))
+      m = metrics_lib.compute_all(out['rgb'], item['rgb'])
+      if masked:
+        fg = np.asarray(item['mask'])[..., 0] > 0.5
+        if fg.any():
+          err = (np.asarray(out['rgb']) - item['rgb'])[fg]
+          mse = float(np.mean(err ** 2))
+          m['masked_psnr'] = -10.0 * float(np.log10(max(mse, 1e-12)))
+      results.append(m)
+    keys = results[0].keys()
+    return {k: float(np.mean([r[k] for r in results if k in r]))
+            for k in keys}

@@ -13,8 +13,9 @@ import torch
 
 from nerfds_torch import kernels
 from nerfds_torch.kernels import composite as tcomposite
+from nerfds_torch.kernels import fused_mlp as tfm
 from nerfds_torch.kernels import fused_trunk as tft
-from nerfds_torch.models.mlp import NerfMLP
+from nerfds_torch.models.mlp import MLP, NerfMLP
 
 
 def t(x):
@@ -100,3 +101,31 @@ def test_fused_trunk_backward_kernel_matches_plain_on_card(cuda):
   for i, (g, w) in enumerate(zip([got_x, *got], [want_x, *want])):
     rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
     assert rel < 1e-4, (i, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [None, torch.bfloat16])
+def test_fused_mlp_kernel_matches_plain_on_card(cuda, compute_dtype):
+  gen = torch.Generator().manual_seed(2)
+  # The NeRF trunk's shape and an rgb branch wider than 256 inputs.
+  for mlp in (MLP(52, 8, 256, (4,), generator=gen),
+              MLP(560, 1, 128, (), output_channels=3, generator=gen)):
+    mlp = mlp.to(cuda)
+    x = (torch.rand(4099, mlp.in_dim, generator=gen) * 2 - 1).to(cuda)
+    before = kernels.launch_counts['fused_mlp_fwd']
+    got = tfm.fused_apply(mlp, None, x, compute_dtype=compute_dtype)
+    assert kernels.launch_counts['fused_mlp_fwd'] == before + 1
+    layers, has_out = tfm.mlp_params_to_layers(mlp, None)
+    with torch.no_grad():
+      want = tfm.fused_mlp_reference(x, layers, mlp.skips,
+                                     has_output_layer=has_out,
+                                     compute_dtype=compute_dtype)
+    if compute_dtype is None:
+      # float32 sums in another order than cuBLAS.
+      torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+      # A sum near a bf16 rounding boundary may round the other way: 2 to
+      # 4 bf16 ulps of the element and of the largest magnitude.
+      scale = want.abs().max().item()
+      torch.testing.assert_close(got, want, rtol=2 ** -6,
+                                 atol=2 ** -6 * scale)

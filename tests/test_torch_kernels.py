@@ -10,14 +10,17 @@ import numpy as np
 import pytest
 import torch
 
+from nerfds_tpu.models.mlp import MLP as JaxMLP
 from nerfds_tpu.models.mlp import NerfMLP as JaxNerfMLP
 from nerfds_tpu.pallas import composite as jcomposite
+from nerfds_tpu.pallas import fused_mlp as jfm
 from nerfds_tpu.pallas import fused_trunk as jft
 from nerfds_torch import kernels
 from nerfds_torch.convert import params_from_jax
 from nerfds_torch.kernels import composite as tcomposite
+from nerfds_torch.kernels import fused_mlp as tfm
 from nerfds_torch.kernels import fused_trunk as tft
-from nerfds_torch.models.mlp import NerfMLP
+from nerfds_torch.models.mlp import MLP, NerfMLP
 from nerfds_torch.ops import rendering as trendering
 
 torch.set_num_threads(1)
@@ -245,3 +248,99 @@ def test_trunk_sigma_grad_function_refuses_double_backward():
   (gx,) = torch.autograd.grad((c * sigma).sum(), x, create_graph=True)
   with pytest.raises(RuntimeError, match='once_differentiable'):
     gx.sum().backward()
+
+
+def mlp_case(depth, width, skips, out_ch, out_act, hidden_act='relu',
+             in_dim=52, n=300, seed=0):
+  """A JAX MLP's params and input, and the port's MLP on the same params."""
+  jm = JaxMLP(depth=depth, width=width, skips=skips,
+              hidden_activation=hidden_act, output_channels=out_ch,
+              output_activation=out_act)
+  params = jax.device_get(jm.init(jax.random.PRNGKey(seed), in_dim))
+  tm = MLP(in_dim, depth, width, skips, hidden_act, out_ch, out_act)
+  tm.load_state_dict(params_from_jax(params))
+  x = np.random.RandomState(seed + 1).randn(n, in_dim).astype(np.float32)
+  return jm, params, tm, x
+
+
+# The three shapes of the JAX package's own test (300 rows on a 128-row
+# tile), its ragged case (77 rows, 16 in), depth 0 (the σ/normal head), and
+# each activation as the hidden and the output activation.
+K3_CASES = {
+    'trunk': dict(depth=8, width=256, skips=(4,), out_ch=0, out_act=None),
+    'warp_like': dict(depth=6, width=128, skips=(4,), out_ch=3,
+                      out_act=None),
+    'mask_like': dict(depth=2, width=64, skips=(), out_ch=1, out_act='relu'),
+    'ragged': dict(depth=2, width=32, skips=(), out_ch=4, out_act=None,
+                   in_dim=16, n=77),
+    'depth0': dict(depth=0, width=0, skips=(), out_ch=4, out_act=None,
+                   in_dim=256),
+    **{f'act_{a}': dict(depth=3, width=64, skips=(0, 2), out_ch=3,
+                        out_act=a, hidden_act=a)
+       for a in ('relu', 'sigmoid', 'softplus', 'tanh', 'identity')},
+}
+
+
+@pytest.mark.parametrize('case', list(K3_CASES))
+def test_fused_mlp_plain_matches_pallas(case):
+  jm, params, tm, x = mlp_case(**K3_CASES[case])
+  want = jfm.fused_apply(jm, params, jnp.asarray(x), tile=128,
+                         interpret=True)
+  got = tfm.fused_apply(tm, params, t(x))
+  assert got.dtype == torch.float32 and not got.requires_grad
+  # Tolerance: as the JAX package's own test, float32 matmuls of XLA and
+  # of torch sum in another order.
+  np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                             atol=1e-5)
+  # The module's own parameters, and the port's MLP.forward, which feeds a
+  # skip layer's two blocks to split weights (sums in another order).
+  torch.testing.assert_close(tfm.fused_apply(tm, None, t(x)), got, rtol=0,
+                             atol=0)
+  with torch.no_grad():
+    torch.testing.assert_close(tm(t(x)), got, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('case', ['trunk', 'act_sigmoid', 'act_softplus'])
+def test_fused_mlp_plain_bf16_matches_pallas(case):
+  jm, params, tm, x = mlp_case(**K3_CASES[case])
+  want = np.asarray(jfm.fused_apply(jm, params, jnp.asarray(x), tile=128,
+                                    compute_dtype=jnp.bfloat16,
+                                    interpret=True))
+  got = tfm.fused_apply(tm, params, t(x), compute_dtype=torch.bfloat16)
+  assert got.dtype == torch.float32
+  # Tolerance: bf16 keeps 8 significant bits. A sum that lies near a bf16
+  # rounding boundary rounds the other way when XLA and torch sum in
+  # another order, and XLA evaluates sigmoid and softplus in bf16 steps:
+  # 2^-6 of each element and of the largest magnitude is 2 to 4 bf16 ulps.
+  scale = np.abs(want).max()
+  np.testing.assert_allclose(got.numpy(), want, rtol=2 ** -6,
+                             atol=2 ** -6 * scale)
+  # Rounded where JAX rounds: bf16 values, unlike the float32 result.
+  assert torch.equal(got, got.to(torch.bfloat16).float())
+  assert not torch.equal(got, tfm.fused_apply(tm, params, t(x)))
+
+
+def test_fused_mlp_empty_input_and_checks():
+  _, params, tm, _ = mlp_case(**K3_CASES['warp_like'])
+  out = tfm.fused_apply(tm, params, torch.zeros(0, 52))
+  assert tuple(out.shape) == (0, 3) and out.dtype == torch.float32
+  x = torch.randn(5, 52)
+  for act in ('elu', 'gelu', 'silu', 'sin'):
+    other = MLP(52, 2, 16, (), act, 2)
+    with pytest.raises(NotImplementedError):
+      tfm.fused_apply(other, None, x)
+  layers, has_out = tfm.mlp_params_to_layers(tm, None)
+  with pytest.raises(ValueError, match='forward-only'):
+    tfm.fused_mlp_forward(x.requires_grad_(), layers, tm.skips,
+                          has_output_layer=has_out)
+  with pytest.raises(ValueError):
+    tfm.fused_mlp_forward(torch.randn(5, 51), layers, tm.skips,
+                          has_output_layer=has_out)
+  before = dict(kernels.launch_counts)
+  with torch.no_grad():
+    tfm.fused_mlp_forward(x, layers, tm.skips, has_output_layer=has_out)
+  assert kernels.launch_counts == before  # the CPU path launches nothing
+  # The CUDA kernel's limits are checked before a launch.
+  wide = [(torch.zeros(52, 512), torch.zeros(512))]
+  with pytest.raises(ValueError, match='256 output columns'):
+    tfm._check_kernel_limits(x, wide)

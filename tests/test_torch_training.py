@@ -415,12 +415,9 @@ def test_unported_options_raise():
                                           gt_samples=8)
   model = torch_model()
   train_cfg = toy_train_cfg(tconfig)
-  for kwargs in ({'use_mesh': True}, {'sampling': 'host'},
-                 {'exp_dir': '/nonexistent'}):
+  for kwargs in ({'use_mesh': True}, {'sampling': 'host'}):
     with pytest.raises(NotImplementedError):
       Trainer(model=model, train_cfg=train_cfg, datasource=source, **kwargs)
-  with pytest.raises(NotImplementedError):
-    Trainer(model=model, train_cfg=train_cfg, datasource=source).eval_psnr()
   with pytest.raises(NotImplementedError):
     tsynthetic.SyntheticDataSource(num_frames=4, gt_backend='jax')
   for flag in ('use_elastic_loss', 'use_background_loss'):
