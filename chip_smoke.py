@@ -8,13 +8,14 @@
 2. K2, compositing forward: kernel against its plain PyTorch version, at
    the render and the training shapes.
 3. K1f, trunk forward with ∂σ/∂feat: kernel against its plain version, at
-   the render and the training shapes.
+   the render and the training shapes, each timed as a share of its bound.
 4. Renders a 128x128 image with the full-width ``nerf_ds()`` model through
    K1f and K2 (launch counts checked), then again on the plain path, and
    compares the two.
 5. K1b, the trunk's hand-derived backward: kernel against its plain version
    at the training shapes and a ragged N; two launches must give the same
-   bits.
+   bits; timed at both training shapes, split into the sweep, the weight
+   grads and their reduction by the profiler.
 6. K3, the whole-MLP forward: kernel against its plain version at every
    ``nerf_ds()`` MLP shape (the NeRF trunk also at a render chunk's sample
    rows), a ragged N, N = 0, each activation and bf16 compute.
@@ -53,10 +54,11 @@ TRAIN_BATCH = 512
 TRAIN_STEPS = 24
 TRAIN_TIMED_STEPS = 6
 # K1b's check: the coarse and fine rows of a training batch (64 + 64
-# samples a ray) and a ragged N; rows a block of its sweep kernel (TM in
-# nerfds_torch/kernels/csrc/trunk_tile.cuh).
+# samples a ray) and a ragged N.
 K1B_SIZES = (TRAIN_BATCH * 64, TRAIN_BATCH * 128, 4099)
-K1B_BLOCK_ROWS = 32
+# K1f's main-path shapes: the coarse and fine rows of a 4096-ray render
+# chunk and of a training batch.
+K1F_MAIN_SIZES = (4096 * 64, 4096 * 128, TRAIN_BATCH * 64, TRAIN_BATCH * 128)
 # K3's check: the render chunk's sample rows (4096 rays x 128 samples), a
 # ragged N (the last 32-row tile is partial) and none.
 K3_SIZES = (4096 * 128, 4099, 0)
@@ -341,7 +343,7 @@ def phase_fused_trunk(torch, device):
   with torch.no_grad():
     # The coarse and fine shapes of a 4096-ray render chunk, R=8192 fine,
     # those of a 512-ray training batch, and a ragged count (the last
-    # 32-row tile is partial).
+    # 64-row tile is partial).
     for n in (4096 * 64, 4096 * 128, 8192 * 128, 512 * 64, 512 * 128, 4099):
       gen = torch.Generator(device=device).manual_seed(n)
       feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
@@ -364,13 +366,14 @@ def phase_fused_trunk(torch, device):
           feat, weights, spec), 3, warmup=1)
       plain_ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_reference(
           feat, weights, spec), 3, warmup=1)
-      print(f'  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
-      if n in (512 * 64, 512 * 128):
-        train[f'train_ms_n{n}'] = ms
-        train[f'train_plain_ms_n{n}'] = plain_ms
-        train[f'train_bound_ms_n{n}'] = trunk_fwd_bound(spec, weights, n)[0]
+      bound_ms, bound_by = trunk_fwd_bound(spec, weights, n)
+      print(f'  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+            f'{bound_ms:.3f} ms: {bound_ms / ms:.1%} of the bound')
+      if n in K1F_MAIN_SIZES and n != 4096 * 128:
+        train[f'ms_n{n}'] = ms
+        train[f'plain_ms_n{n}'] = plain_ms
+        train[f'bound_ms_n{n}'] = bound_ms
       if n == 4096 * 128:
-        bound_ms, bound_by = trunk_fwd_bound(spec, weights, n)
         main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by)
       del feat
@@ -395,43 +398,20 @@ def trunk_bwd_flops(spec) -> int:
   return 2 * (5 * trunk + r_g + head + bneck)
 
 
-def kink_flip(torch, fused_trunk, feat, cots, weights, spec, got_x):
-  """Explains the kernel's feat_bar ``got_x`` [1, D] of the one-row
-  ``feat`` and ``cots`` as the exact (float64) result with every relu mask
-  as it falls, or with one mask flipped at a unit whose pre-activation lies
-  within 1e-4 of 0 (the 16 nearest), where float32 rounding may put it on
-  the other side. Returns |a| of the flipped unit (0.0 for none), or None
-  when no such result matches within atol 1e-4 + rtol 1e-4.
-
-  feat_bar depends on the forward values only through the masks, so a mask
-  is flipped by moving that unit's bias by -2a."""
-  f64 = lambda ts: tuple(t.double() if t is not None else None for t in ts)
-  w64 = fused_trunk.TrunkWeights(
-      layers=[f64(layer) for layer in weights.layers],
-      head=f64(weights.head),
-      bottleneck=(f64(weights.bottleneck) if weights.bottleneck is not None
-                  else None))
-  x, c64, got = feat.double(), f64(cots), got_x.double()
-  pre, h = [], x
-  for i, (w, b) in enumerate(w64.layers):
-    a = (h @ w[:spec.width] + x @ w[spec.width:] + b if spec.is_skip(i)
-         else h @ w + b)
-    pre.append(a[0])
-    h = torch.relu(a)
-  near = sorted((abs(a[u].item()), i, u) for i, a in enumerate(pre)
-                for u in torch.nonzero(a.abs() < 1e-4).flatten().tolist())
-  for size, i, u in [(0.0, None, None), *near[:16]]:
-    layers = list(w64.layers)
-    if i is not None:
-      w, b = layers[i]
-      b = b.clone()
-      b[u] -= 2 * pre[i][u]
-      layers[i] = (w, b)
-    want = fused_trunk.trunk_sigma_grad_backward_reference(
-        x, w64._replace(layers=layers), spec, c64)[0]
-    if bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()):
-      return size
-  return None
+def trunk_bwd_bound(spec, weights, n: int):
+  """(ms, what bounds it, TFLOP, MB) of K1b on N rows: its operations at
+  f32 peak, or its inputs and outputs moved once (feat and the five
+  cotangents in, feat_bar out, the weights read and their grads
+  written)."""
+  flops = n * trunk_bwd_flops(spec)
+  n_weights = sum(w.numel() + b.numel() for w, b in weights.layers) + \
+      sum(t.numel() for t in (*weights.head, *weights.bottleneck))
+  nbytes = 4 * (n * (2 * spec.in_dim + 1 + spec.norm_dim + 2 * spec.width
+                     + spec.in_dim) + 2 * n_weights)
+  t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+  return (1e3 * max(t_ops, t_bytes),
+          'operations' if t_ops >= t_bytes else 'bytes', flops / 1e12,
+          nbytes / 1e6)
 
 
 def phase_fused_trunk_bwd(torch, device):
@@ -441,9 +421,10 @@ def phase_fused_trunk_bwd(torch, device):
   from nerfds_torch.kernels import fused_trunk
   print('== K1b fused_trunk_bwd vs plain version')
   spec, weights = nerf_ds_trunk(torch, device, seed=2)
+  tile_rows = fused_trunk.KERNEL_TILE_ROWS
   flat_names = [f'{k}{i}' for i in range(spec.depth) for k in ('dW', 'db')]
   flat_names += ['bottleneck_dW', 'bottleneck_db', 'head_dW', 'head_db']
-  max_err, main = 0.0, None
+  max_err, main, train = 0.0, None, {}
   with torch.no_grad():
     for n in K1B_SIZES:
       gen = torch.Generator(device=device).manual_seed(n + 1)
@@ -464,31 +445,21 @@ def phase_fused_trunk_bwd(torch, device):
       print(f' N={n}: repeat launch bit-identical: {same}')
       if not same:
         raise AssertionError('K1b: two launches on the same inputs differ')
-      # A row whose pre-activation lies within rounding of 0 may take the
-      # other side of a relu kink in the kernel's recompute than in cuBLAS,
-      # which moves that row's feat_bar and its share of every grad sum.
-      # Every row whose feat_bar is beyond atol 1e-4 + rtol 1e-4 must be
-      # the exact result with one mask flipped at such a unit (kink_flip);
-      # such rows may be at most 1e-3 of N, none at a ragged N and none in
-      # the last 32-row block. With their cotangents zeroed they add
-      # nothing to any output, and then everything must agree tightly.
+      # Rows at relu kinks: each feat_bar row beyond tolerance must be
+      # proven by fused_trunk.kink_flip, at most 1e-3 of N
+      # (fused_trunk.check_kink_rows); here also none at a ragged N and
+      # none in the last block of the sweep (KERNEL_TILE_ROWS rows). With
+      # their cotangents zeroed they add nothing to any output, and then
+      # everything must agree tightly.
       err = (got_x - want_x).abs()
-      bad = (err > 1e-4 + 1e-4 * want_x.abs()).any(-1)
-      rows = torch.nonzero(bad).flatten().tolist()
-      flips = [kink_flip(torch, fused_trunk, feat[r:r + 1],
-                         tuple(c[r:r + 1] for c in cots), weights, spec,
-                         got_x[r:r + 1]) for r in rows]
-      last_block = (n - 1) // K1B_BLOCK_ROWS * K1B_BLOCK_ROWS
+      bad, rows, flips = fused_trunk.check_kink_rows(feat, weights, spec,
+                                                     cots, got_x, want_x)
+      last_block = (n - 1) // tile_rows * tile_rows
       print(f'  feat_bar: max_abs_err {err.max().item():.3e}; rows beyond '
             f'tolerance {len(rows)} of {n}: {rows[:12]}; |a| of the relu '
             f'flipped there: {flips[:12]}')
       max_err = max(max_err, err.max().item())
-      if None in flips:
-        raise AssertionError(
-            f'K1b feat_bar: rows {[r for r, f in zip(rows, flips) if f is None]}'
-            ' match no result with at most one relu flipped near a kink')
-      if (len(rows) > 1e-3 * n or (rows and n % K1B_BLOCK_ROWS)
-          or any(r >= last_block for r in rows)):
+      if (rows and n % tile_rows) or any(r >= last_block for r in rows):
         raise AssertionError(f'K1b feat_bar: rows {rows} beyond tolerance')
       rel_all = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
                  for g, w in zip(got[1:], fused_trunk._flatten(want_w))]
@@ -517,33 +488,42 @@ def phase_fused_trunk_bwd(torch, device):
       print(f'  without them, worst |got - want| / |want| over feat_bar '
             f'and {len(flat_names)} grads: {worst:.3e}')
       del got, again, want, got_w, again_w, want_w, err, bad
-      if n == TRAIN_BATCH * 128:  # the fine level's rows
+      if n in (TRAIN_BATCH * 64, TRAIN_BATCH * 128):  # coarse, fine rows
         ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
             feat, weights, spec, cots), 3, warmup=1)
         plain_ms = time_ms(
             torch, lambda: fused_trunk.trunk_sigma_grad_backward_reference(
                 feat, weights, spec, cots), 3, warmup=1)
-        flops = n * trunk_bwd_flops(spec)
-        n_weights = sum(w.numel() + b.numel() for w, b in weights.layers) + \
-            sum(t.numel() for t in (*weights.head, *weights.bottleneck))
-        # Inputs feat and the five cotangents, outputs feat_bar; the
-        # weights read once and their grads written once.
-        nbytes = 4 * (n * (2 * spec.in_dim + 1 + spec.norm_dim
-                           + 2 * spec.width + spec.in_dim) + 2 * n_weights)
-        t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
-        main = dict(ms=ms, plain_ms=plain_ms,
-                    bound_ms=1e3 * max(t_ops, t_bytes),
-                    bound_by='operations' if t_ops >= t_bytes else 'bytes')
+        bound_ms, bound_by, tflop, mbytes = trunk_bwd_bound(spec, weights, n)
         print(f'  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-              f'{main["bound_ms"]:.3f} ms ({flops / 1e12:.4f} TFLOP, '
-              f'{nbytes / 1e6:.1f} MB)')
-        profile_device(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
-            feat, weights, spec, cots), f'K1b at N={n}', top=4)
+              f'{bound_ms:.3f} ms ({tflop:.4f} TFLOP, {mbytes:.1f} MB): '
+              f'{bound_ms / ms:.1%} of the bound')
+        parts = profile_device(
+            torch, lambda: fused_trunk.trunk_sigma_grad_backward(
+                feat, weights, spec, cots), f'K1b at N={n}', top=4)
+        split = bwd_kernel_split(parts)
+        print(f'  K1b at N={n} by kernel: sweep {split["sweep_ms"]:.3f} ms, '
+              f'weight grads {split["wgrad_ms"]:.3f} ms, reduction '
+              f'{split["reduce_ms"]:.3f} ms')
+        if n == TRAIN_BATCH * 128:  # the fine level's rows
+          main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, **split)
+        else:
+          train.update({f'{k}_n{n}': v for k, v in dict(
+              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, **split).items()})
       del feat, cots
   return dict(name='fused_trunk_bwd', route='cuda',
               source='nerfds_torch/kernels/csrc/fused_trunk_bwd.cu',
               replaces='nerfds_tpu/pallas/fused_trunk.py:295',
-              max_abs_err=max_err, library_ms=None, **main)
+              max_abs_err=max_err, library_ms=None, **main, **train)
+
+
+def bwd_kernel_split(parts):
+  """K1b's device time a call by its kernels: the sweep, the weight-grad
+  products and the reduction of their partials."""
+  pick = lambda key: sum(ms for name, ms in parts.items() if key in name)
+  return dict(sweep_ms=pick('trunk_bwd_sweep'), wgrad_ms=pick('wgrad_kernel'),
+              reduce_ms=pick('wgrad_reduce'))
 
 
 def pinhole_rays(size: int, num_embeds: int):
@@ -981,7 +961,8 @@ def host_syncs(torch, fn):
 
 def profile_device(torch, fn, name, n=2, top=8):
   """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler), and
-  the device's idle share of their wall time with the profiler on."""
+  the device's idle share of their wall time with the profiler on; returns
+  {kernel or copy name: device ms a call}."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
@@ -1004,6 +985,7 @@ def profile_device(torch, fn, name, n=2, top=8):
   for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
     print(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms {e.count // n:5d}x '
           f'{e.key[:80]}')
+  return {e.key: e.self_device_time_total / 1e3 / n for e in events}
 
 
 def main() -> int:

@@ -13,29 +13,41 @@
 // and the two weight-grad contractions are each one trunk's worth of
 // multiply-adds (about 485 k a row), the g-path sweep r_g about 459 k, the
 // head and bottleneck about 133 k: about 6.0 MFLOP a row against about
-// 2.7 KB of input and output a row.
+// 2.7 KB of input and output a row (5.9 ms at 67 TFLOP/s for N = 65,536).
 //
-// Design, in three launches on the caller's stream:
-// 1. trunk_bwd_sweep_kernel: a block owns 32 rows, as in the forward kernel
-//    (trunk_tile.cuh), and runs the recompute, tau, and r with r_g in
-//    lockstep, as 32 x 256 tiles in shared memory (two tiles, reused from
-//    sweep to sweep) with every layer's relu mask kept as bits: 93 KB for
-//    depth 8, so two blocks fit on an SM. A tile cannot hold the TPU
-//    kernel's [depth, tile, width] stores of h and tau for the weight
-//    grads, and the weight grads sum over every row of N, across blocks. So
-//    the sweep writes h_i, tau_i, c1_i = r_i * m_i and c_g,i = r_g,i * m_i
-//    of every layer to device-memory scratch that the wrapper allocates:
+// Design, in three launches on the caller's stream, all f32 FMA on the CUDA
+// cores:
+// 1. trunk_bwd_sweep_kernel: a block owns 64 rows and runs the recompute,
+//    tau, the seed of r, then r with r_g in lockstep, layer by layer, every
+//    product on the row-tile engine of trunk_tile.cuh. r and r_g each take
+//    their own pass over a reverse weight: one pass feeding both (128
+//    accumulators a thread) ran the sweep slower on the H100. Shared
+//    memory a block (one block an SM):
+//      two activation tiles [256][68] f32      139,264 B
+//        (feat, G_bar and the head cotangent live in the second tile's
+//        space until r takes it over)
+//      weight ring 3 x 16 x 256 f32             49,152 B
+//      relu bits depth x 2 KB                    16,384 B at depth 8,
+//                                               24,576 B at depth 12
+//      total                                   204,800 B at depth 8,
+//                                              212,992 B at depth 12
+//    of 232,448 B. The weight grads sum over every row of N, across
+//    blocks, so the sweep writes h_i, tau_i, c1_i = r_i * m_i and
+//    c_g,i = r_g,i * m_i of every layer to device-memory scratch:
 //    4 * depth * N * 256 floats, 2.1 GB at depth 8 and N = 65,536, written
-//    once and read back by step 2 (about 1.3 ms of HBM time at 3.35 TB/s,
-//    against the 5.9 ms operations bound).
+//    once and read back by step 2, about 1.3 ms of HBM time at 3.35 TB/s
+//    against the 5.9 ms operations bound, partly hidden under the FMAs.
 // 2. trunk_wgrad_kernel: every grad is a sum over rows of one or two outer
 //    products, dW = A^T C + A2^T C2 (zin^T c1 + tin^T c_g for a trunk layer,
-//    h_L^T [sigma_bar, n_bar] + tau_L^T e0 for the head, a column of ones
-//    for a bias). A block owns a 128 x 128 tile of one grad and one fixed
-//    slice of the rows, walks them in order and writes a partial sum.
+//    h_L^T [sigma_bar, n_bar] + tau_L^T e0 for the head). A block owns a
+//    128 x 128 tile of one grad and one fixed slice of the rows, and walks
+//    the slice in stages of 16 rows, double-buffered in a 3-stage cp.async
+//    ring (16-byte copies, 96 KB, two blocks an SM); each thread keeps 8 x 8
+//    outputs and does 64 FMAs a product per four 16-byte shared loads. The
+//    blocks of k-tile 0 also sum the first product's C over their rows:
+//    that is the bias grad (sum of c1, of B_bar, of the head cotangent).
 // 3. trunk_wgrad_reduce_kernel adds the slices' partials in slice order.
-// No atomics: two launches on the same inputs give the same bits. Plain FMA
-// loops; wgmma, TMA and TF32 are later work.
+// No atomics: two launches on the same inputs give the same bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,258 +55,141 @@
 
 namespace {
 
-constexpr int MAXD = 12;      // deepest trunk supported (shared memory)
-constexpr int MAXDESC = 40;   // grads of the deepest trunk, all skips
+constexpr int MAXD = 12;      // deepest trunk supported (grad table size)
+constexpr int MAXDESC = 28;   // grads of the deepest trunk, all skips
 constexpr int TK = 128;       // weight-grad tile rows (input channels)
 constexpr int TJ = 128;       // weight-grad tile columns (output channels)
-constexpr int RB = 8;         // rows staged per step of the reduction
+constexpr int RB = 16;        // rows a stage of the weight-grad ring
+constexpr int WSTAGES = 3;    // stages of the weight-grad ring
 
 struct BwdParams {
   const float* wf_h[MAXD];  // forward weight read by h ([D,256] at layer 0)
   const float* wf_x[MAXD];  // forward weight read by feat at skip layers
   const float* wr_h[MAXD];  // reverse weight to h, [256 out, 256 in]
-  const float* wr_x[MAXD];  // reverse weight to feat, [256 out, D]
+  const float* wr_x[MAXD];  // reverse weight to feat, [256 out, NW]
   const float* b[MAXD];
   const float* head_w;      // [256, hc]: column 0 is w_sigma
   const float* wa_t;        // [hcu, 256]: the used head columns, transposed
   const float* wb_t;        // [256, 256]: the bottleneck, transposed, or null
 };
 
-// Stores a thread's 4 x 8 register tile to rows row0 + r0 .. of a [N, 256]
-// matrix, skipping rows past n.
-__device__ __forceinline__ void store_tile(float* __restrict__ dst, int row0,
-                                           int n, const float (&v)[4][8]) {
-  const int c0 = (threadIdx.x & 31) * 8, r0 = (threadIdx.x >> 5) * 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gr = row0 + r0 + r;
-    if (gr < n) {
-      float4* out = reinterpret_cast<float4*>(
-          dst + static_cast<size_t>(gr) * WIDTH + c0);
-      out[0] = make_float4(v[r][0], v[r][1], v[r][2], v[r][3]);
-      out[1] = make_float4(v[r][4], v[r][5], v[r][6], v[r][7]);
-    }
-  }
+__host__ __device__ constexpr int sweep_smem_bytes(int depth) {
+  return (2 * TILE_FLOATS + RING_FLOATS) * 4 + depth * MASK_BYTES;
 }
 
-__device__ __forceinline__ void put_tile(float* __restrict__ buf,
-                                         const float (&v)[4][8]) {
-  const int c0 = (threadIdx.x & 31) * 8, r0 = (threadIdx.x >> 5) * 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) buf[(r0 + r) * LDH + c0 + j] = v[r][j];
-}
-
-__device__ __forceinline__ void zero_tile(float (&v)[4][8]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[r][j] = 0.0f;
-}
-
-// Relu masks are kept as bits: byte (row, lane) of a layer's [TM][32] mask
-// holds the 8 columns lane * 8 .. lane * 8 + 7 of that row.
-__device__ __forceinline__ uint8_t mask_bits(float (&v)[4][8], int r) {
-  unsigned bits = 0u;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const bool on = v[r][j] > 0.0f;
-    bits |= static_cast<unsigned>(on) << j;
-    v[r][j] = on ? v[r][j] : 0.0f;
-  }
-  return static_cast<uint8_t>(bits);
-}
-
-// v *= mask, for the thread's 4 x 8 tile of a layer's bit mask.
-__device__ __forceinline__ void apply_mask(float (&v)[4][8],
-                                           const uint8_t* __restrict__ m) {
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const unsigned bits = m[(r0 + r) * 32 + lane];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (!((bits >> j) & 1u)) v[r][j] = 0.0f;
-  }
-}
-
-__device__ __forceinline__ void get_tile(float (&v)[4][8],
-                                         const float* __restrict__ buf) {
-  const int c0 = (threadIdx.x & 31) * 8, r0 = (threadIdx.x >> 5) * 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[r][j] = buf[(r0 + r) * LDH + c0 + j];
-}
-
-// Two blocks an SM: two activation tiles and bit masks keep shared memory
-// at 93 KB for depth 8, and one accumulator tile keeps registers at 128.
-__global__ void __launch_bounds__(NT, 2) trunk_bwd_sweep_kernel(
+// feat and G_bar have rows of ldx = D rounded up to 4 floats; the head
+// cotangent rows of HCMAX floats (the wrapper pads them).
+__global__ void __launch_bounds__(NT, 1) trunk_bwd_sweep_kernel(
     const float* __restrict__ feat, const float* __restrict__ head_cot,
     const float* __restrict__ tbar, const float* __restrict__ bbar,
-    const float* __restrict__ gbar, int n, int d, int depth,
+    const float* __restrict__ gbar, int n, int d, int ldx, int depth,
     unsigned skip_bits, int hc, int hcu, int has_bn,
     const __grid_constant__ BwdParams p,
     float* __restrict__ xbar, float* __restrict__ h_s,
     float* __restrict__ tau_s, float* __restrict__ c1_s,
     float* __restrict__ cg_s) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* buf0 = reinterpret_cast<float*>(smem);  // h, B_bar, tau, r_g
-  float* buf1 = buf0 + TM * LDH;                 // r             [TM][LDH]
-  float* xbuf = buf1 + TM * LDH;                 // feat          [TM][LDX]
-  float* gbuf = xbuf + TM * LDX;                 // G_bar         [TM][LDX]
-  float* hcbuf = gbuf + TM * LDX;                // head cot.     [TM][HCMAX]
-  uint8_t* masks = reinterpret_cast<uint8_t*>(hcbuf + TM * HCMAX);
+  float* buf0 = reinterpret_cast<float*>(smem);  // h, tau, B_bar, c_g
+  float* buf1 = buf0 + TILE_FLOATS;              // c1
+  float* xbuf = buf1;                            // feat   [DMAX][LDA]
+  float* gbuf = buf1 + XTILE_FLOATS;             // G_bar  [DMAX][LDA]
+  float* hcbuf = gbuf + XTILE_FLOATS;            // head cotangent [KC][LDA]
+  float* ring = buf1 + TILE_FLOATS;
+  uint64_t* masks = reinterpret_cast<uint64_t*>(ring + RING_FLOATS);
 
   const int t = threadIdx.x;
   const int row0 = blockIdx.x * TM;
-  const int c0 = (t & 31) * 8, r0 = (t >> 5) * 4, lane = t & 31;
   const size_t layer = static_cast<size_t>(n) * WIDTH;
-  for (int i = t; i < TM * d; i += NT) {
-    const int r = i / d, c = i - r * d;
-    const int gr = row0 + r;
-    const size_t at = static_cast<size_t>(gr) * d + c;
-    xbuf[r * LDX + c] = gr < n ? feat[at] : 0.0f;
-    gbuf[r * LDX + c] = gr < n ? gbar[at] : 0.0f;
-  }
-  for (int i = t; i < TM * HCMAX; i += NT) {
-    const int r = i / HCMAX, c = i - r * HCMAX;
-    const int gr = row0 + r;
-    hcbuf[i] = (gr < n && c < hcu) ? head_cot[static_cast<size_t>(gr) * hcu + c]
-                                   : 0.0f;
-  }
-  __syncthreads();
+  load_narrow_tile(xbuf, feat, ldx, d, DMAX, row0, n);
+  load_narrow_tile(gbuf, gbar, ldx, d, DMAX, row0, n);
+  load_narrow_tile(hcbuf, head_cot, HCMAX, hcu, KC, row0, n);
 
-  float acc[4][8];
+  float acc[8][8];
   // 1. Forward recompute: h_i = relu(h_{i-1} W_i [+ feat Wx_i] + b_i).
   for (int i = 0; i < depth; ++i) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = __ldg(p.b[i] + c0 + j);
+    fill_columns(acc, p.b[i], 1);
     if (i == 0) {
-      mm_wide(acc, xbuf, LDX, d, p.wf_h[0]);
+      mm_wide(acc, xbuf, d, p.wf_h[0], ring);
     } else {
-      mm_wide(acc, buf0, LDH, WIDTH, p.wf_h[i]);
-      if ((skip_bits >> i) & 1u) mm_wide(acc, xbuf, LDX, d, p.wf_x[i]);
+      mm_wide(acc, buf0, WIDTH, p.wf_h[i], ring);
+      if ((skip_bits >> i) & 1u) mm_wide(acc, xbuf, d, p.wf_x[i], ring);
     }
-    __syncthreads();  // every read of h_{i-1} is done
-    uint8_t* m = masks + static_cast<size_t>(i) * TM * 32;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) m[(r0 + r) * 32 + lane] = mask_bits(acc, r);
-    put_tile(buf0, acc);
-    store_tile(h_s + i * layer, row0, n, acc);
-    __syncthreads();
+    masks[i * NT + t] = relu_bits(acc);
+    if (i + 1 < depth) put_tile(buf0, acc);
+    store_rows(h_s + i * layer, row0, n, acc);
   }
 
-  // 2. Seed of the first-order sweep:
-  //    r = T_bar + [sigma_bar, n_bar] W_head^T (+ B_bar W_bn^T).
-  if (has_bn) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int gr = row0 + r0 + r;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        buf0[(r0 + r) * LDH + c0 + j] =
-            gr < n ? bbar[static_cast<size_t>(gr) * WIDTH + c0 + j] : 0.0f;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gr = row0 + r0 + r;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[r][j] = gr < n ? tbar[static_cast<size_t>(gr) * WIDTH + c0 + j] : 0.0f;
-  }
-  __syncthreads();
-  mm_wide(acc, hcbuf, HCMAX, hcu, p.wa_t);
-  if (has_bn) mm_wide(acc, buf0, LDH, WIDTH, p.wb_t);
-  put_tile(buf1, acc);
-  __syncthreads();  // B_bar in buf0 is read
-
-  // 3. Tangent sweep seeded with G_bar at every input injection:
+  // 2. Tangent sweep seeded with G_bar at every input injection:
   //    tau_i = (tau_{i-1} W_i [+ G_bar Wx_i]) * m_i, tau_0 = (G_bar W_0) * m_0.
   for (int i = 0; i < depth; ++i) {
-    zero_tile(acc);
+    fill_tile(acc, 0.0f);
     if (i == 0) {
-      mm_wide(acc, gbuf, LDX, d, p.wf_h[0]);
+      mm_wide(acc, gbuf, d, p.wf_h[0], ring);
     } else {
-      mm_wide(acc, buf0, LDH, WIDTH, p.wf_h[i]);
-      if ((skip_bits >> i) & 1u) mm_wide(acc, gbuf, LDX, d, p.wf_x[i]);
+      mm_wide(acc, buf0, WIDTH, p.wf_h[i], ring);
+      if ((skip_bits >> i) & 1u) mm_wide(acc, gbuf, d, p.wf_x[i], ring);
     }
-    __syncthreads();  // every read of tau_{i-1} is done
-    apply_mask(acc, masks + static_cast<size_t>(i) * TM * 32);
-    put_tile(buf0, acc);
-    store_tile(tau_s + i * layer, row0, n, acc);
-    __syncthreads();
+    apply_bits(acc, masks[i * NT + t]);
+    if (i + 1 < depth) put_tile(buf0, acc);
+    store_rows(tau_s + i * layer, row0, n, acc);
   }
+
+  // 3. Seed of the first-order sweep:
+  //    r = T_bar + [sigma_bar, n_bar] W_head^T (+ B_bar W_bn^T).
+  if (has_bn) {
+    load_rows(acc, bbar, row0, n);
+    put_tile(buf0, acc);
+  }
+  load_rows(acc, tbar, row0, n);
+  mm_wide(acc, hcbuf, hcu, p.wa_t, ring);
+  if (has_bn) mm_wide(acc, buf0, WIDTH, p.wb_t, ring);
 
   // 4. Reverse sweeps in lockstep: c1_i = r_i * m_i and c_g,i = r_g,i * m_i,
   //    with r_g seeded by w_sigma; feat_bar += c1_i Wx_i^T at layer 0 and the
-  //    skips; r_{i-1} = c1_i Wh_i^T, r_g,i-1 = c_g,i Wh_i^T. r lives in buf1,
-  //    r_g in buf0.
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      buf0[(r0 + r) * LDH + c0 + j] =
-          __ldg(p.head_w + static_cast<size_t>(c0 + j) * hc);
-  float xacc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  //    skips; r_{i-1} = c1_i Wh_i^T, r_g,i-1 = c_g,i Wh_i^T. feat, G_bar and
+  //    the head cotangent are no longer read, so c1 takes buf1.
+  float accg[8][8];
+  fill_columns(accg, p.head_w, hc);
+  float xacc[4][4] = {};
   for (int i = depth - 1; i >= 0; --i) {
-    // Each thread masks its own elements in place.
-    const uint8_t* m = masks + static_cast<size_t>(i) * TM * 32;
-    get_tile(acc, buf1);
-    apply_mask(acc, m);
-    store_tile(c1_s + i * layer, row0, n, acc);
+    const uint64_t bits = masks[i * NT + t];
+    apply_bits(acc, bits);
+    apply_bits(accg, bits);
+    store_rows(c1_s + i * layer, row0, n, acc);
+    store_rows(cg_s + i * layer, row0, n, accg);
     put_tile(buf1, acc);
-    get_tile(acc, buf0);
-    apply_mask(acc, m);
-    store_tile(cg_s + i * layer, row0, n, acc);
-    put_tile(buf0, acc);
-    __syncthreads();
+    put_tile(buf0, accg);
     if (i == 0 || ((skip_bits >> i) & 1u))
-      mm_narrow(xacc, buf1, LDH, WIDTH, p.wr_x[i], d);
+      mm_narrow(xacc, buf1, WIDTH, p.wr_x[i], ring);
     if (i > 0) {
-      zero_tile(acc);
-      mm_wide(acc, buf1, LDH, WIDTH, p.wr_h[i]);
-      __syncthreads();  // every read of c1_i is done
-      put_tile(buf1, acc);
-      zero_tile(acc);
-      mm_wide(acc, buf0, LDH, WIDTH, p.wr_h[i]);
-      __syncthreads();  // every read of c_g,i is done
-      put_tile(buf0, acc);
-      __syncthreads();
+      fill_tile(acc, 0.0f);
+      mm_wide(acc, buf1, WIDTH, p.wr_h[i], ring);
+      fill_tile(accg, 0.0f);
+      mm_wide(accg, buf0, WIDTH, p.wr_h[i], ring);
     }
   }
-  {
-    const int xc0 = (t & 7) * 8, xrow = row0 + (t >> 3);
-    if (xrow < n) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (xc0 + j < d) xbar[static_cast<size_t>(xrow) * d + xc0 + j] = xacc[j];
-    }
-  }
+  store_narrow(xbar, row0, n, d, xacc);
 }
 
-// Kernel parameters are __grid_constant__: indexed by a loop variable, they
-// are read in place rather than copied to each thread's stack.
-
 // One grad: out[k, j] (row stride ldo) = sum over rows of
-// A[row, k] C[row, j] + A2[row, k] C2[row, j], k < k_dim, j < nc.
-// A null means a column of ones (k_dim 1); A2 null means no second product.
+// A[row, k] C[row, j] + A2[row, k] C2[row, j], k < k_dim, j < nc, and, if
+// bias is set, bias[j] = sum over rows of C[row, j]. A2 null means no
+// second product.
 struct WgDesc {
   const float* a;
   const float* a2;
   const float* c;
   const float* c2;
   float* out;
+  float* bias;
   int lda, ldc, k_dim, nc, ldo;
   int tile_begin;       // first block (grid x) of this grad
   int j_tiles;          // tiles along j
   long long part_off;   // offset of this grad's partials within a split
 };
 
+// Kernel parameters are __grid_constant__: indexed by a loop variable, they
+// are read in place rather than copied to each thread's stack.
 struct WgParams {
   WgDesc desc[MAXDESC];
   int ndesc;
@@ -304,86 +199,124 @@ struct WgParams {
   float* partials;      // [splits][per_split]
 };
 
-// A block owns a 128 x 128 output tile; thread (ty, tx) keeps the 8 x 8
-// outputs at k rows ty*4 + {0..3, 64..67} and j columns tx*4 + {0..3,
-// 64..67} in registers, so each row staged in shared memory feeds 64 FMAs
-// per product from four 16-byte loads.
-__global__ void __launch_bounds__(256) trunk_wgrad_kernel(
+// Floats of one weight-grad stage: A, C, A2, C2, each [RB][128].
+constexpr int WG_STAGE = 4 * RB * TK;
+constexpr int WG_SMEM_BYTES = WSTAGES * WG_STAGE * 4;
+
+// Copies the 16-byte pieces of rows [rb, rb + RB) x columns [col0,
+// col0 + 128) of a row-major matrix (row stride ld) into dst [RB][128];
+// rows at or past rend and columns at or past ncol are zero.
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int ld, int col0, int ncol, int rb,
+                                           int rend) {
+#pragma unroll
+  for (int q = 0; q < RB * TK / 4 / 256; ++q) {
+    const int e = threadIdx.x + q * 256;
+    const int r = e >> 5, c4 = e & 31;
+    const int row = rb + r, col = col0 + c4 * 4;
+    const int valid = row < rend ? max(0, min(4, ncol - col)) : 0;
+    const float* from =
+        valid ? src + static_cast<size_t>(row) * ld + col : src;
+    cp_async16(dst + r * TK + c4 * 4, from, 4 * valid);
+  }
+}
+
+// A block owns a 128 x 128 output tile. Warp w covers k rows (w / 2) * 32
+// .. + 32 and j columns (w % 2) * 64 .. + 64; its lane l keeps the 8 x 8
+// outputs at k rows (l / 8) * 4 + {0..3, 16..19} and j columns
+// (l % 8) * 4 + {0..3, 32..35} of the warp's in registers.
+__global__ void __launch_bounds__(256, 2) trunk_wgrad_kernel(
     const __grid_constant__ WgParams p) {
-  __shared__ __align__(16) float as[RB][TK];
-  __shared__ __align__(16) float a2s[RB][TK];
-  __shared__ __align__(16) float cs[RB][TJ];
-  __shared__ __align__(16) float c2s[RB][TJ];
+  extern __shared__ __align__(16) float wsm[];  // [WSTAGES][WG_STAGE]
   int di = 0;
-  while (di + 1 < p.ndesc && p.desc[di + 1].tile_begin <= static_cast<int>(blockIdx.x)) ++di;
+  while (di + 1 < p.ndesc &&
+         p.desc[di + 1].tile_begin <= static_cast<int>(blockIdx.x))
+    ++di;
   const WgDesc& D = p.desc[di];
   const int local = blockIdx.x - D.tile_begin;
   const int k0 = (local / D.j_tiles) * TK, j0 = (local % D.j_tiles) * TJ;
   const int split = blockIdx.y;
   const int rbeg = split * p.rows_per_split;
   const int rend = min(p.n, rbeg + p.rows_per_split);
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
+  const int nstages = rend > rbeg ? (rend - rbeg + RB - 1) / RB : 0;
+  const int t = threadIdx.x;
+  const int kb = ((t >> 6) << 5) + (((t >> 3) & 3) << 2);  // first k row
+  const int jb = (((t >> 5) & 1) << 6) + ((t & 7) << 2);   // first j column
   const bool two = D.a2 != nullptr;
+  const bool bias = D.bias != nullptr && k0 == 0;
+
+  auto load = [&](int s, int q) {
+    float* st = wsm + s * WG_STAGE;
+    const int rb = rbeg + q * RB;
+    stage_rows(st, D.a, D.lda, k0, D.k_dim, rb, rend);
+    stage_rows(st + RB * TK, D.c, D.ldc, j0, D.nc, rb, rend);
+    if (two) {
+      stage_rows(st + 2 * RB * TK, D.a2, D.lda, k0, D.k_dim, rb, rend);
+      stage_rows(st + 3 * RB * TK, D.c2, D.ldc, j0, D.nc, rb, rend);
+    }
+  };
+
   float acc[8][8] = {};
-  for (int rb = rbeg; rb < rend; rb += RB) {
-    for (int e = t; e < RB * TK; e += 256) {
-      const int r = e / TK, kk = e - r * TK;
-      const int row = rb + r;
-      const bool in_rows = row < rend;
-      const int kc = k0 + kk, jc = j0 + kk;
-      const bool ok_a = in_rows && kc < D.k_dim;
-      const bool ok_c = in_rows && jc < D.nc;
-      const size_t arow = static_cast<size_t>(row) * D.lda + kc;
-      const size_t crow = static_cast<size_t>(row) * D.ldc + jc;
-      as[r][kk] = ok_a ? (D.a ? D.a[arow] : 1.0f) : 0.0f;
-      cs[r][kk] = ok_c ? D.c[crow] : 0.0f;
-      if (two) {
-        a2s[r][kk] = ok_a ? D.a2[arow] : 0.0f;
-        c2s[r][kk] = ok_c ? D.c2[crow] : 0.0f;
-      }
-    }
-    __syncthreads();
+  float bsum[8] = {};
 #pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[r][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[r][64 + ty * 4]);
-      const float4 c0 = *reinterpret_cast<const float4*>(&cs[r][tx * 4]);
-      const float4 c1 = *reinterpret_cast<const float4*>(&cs[r][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
-      if (two) {
-        const float4 b0 = *reinterpret_cast<const float4*>(&a2s[r][ty * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&a2s[r][64 + ty * 4]);
-        const float4 e0 = *reinterpret_cast<const float4*>(&c2s[r][tx * 4]);
-        const float4 e1 = *reinterpret_cast<const float4*>(&c2s[r][64 + tx * 4]);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-        const float ev[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(bv[i], ev[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
+  for (int s = 0; s < WSTAGES - 1; ++s) {
+    if (s < nstages) load(s, s);
+    cp_async_commit();
   }
-  float* part = p.partials + static_cast<size_t>(split) * p.per_split + D.part_off;
+  for (int q = 0; q < nstages; ++q) {
+    cp_async_wait<WSTAGES - 2>();
+    __syncthreads();
+    const int next = q + WSTAGES - 1;
+    if (next < nstages) load(next % WSTAGES, next);
+    cp_async_commit();
+    const float* st = wsm + (q % WSTAGES) * WG_STAGE;
+#pragma unroll 4
+    for (int r = 0; r < RB; ++r) {
+      const float* as = st + r * TK;
+      const float* cs = st + RB * TK + r * TK;
+      const float4 c0 = *reinterpret_cast<const float4*>(cs + jb);
+      const float4 c1 = *reinterpret_cast<const float4*>(cs + jb + 32);
+      fma_8x8(acc, *reinterpret_cast<const float4*>(as + kb),
+              *reinterpret_cast<const float4*>(as + kb + 16), c0, c1);
+      if (bias) {
+        bsum[0] += c0.x; bsum[1] += c0.y; bsum[2] += c0.z; bsum[3] += c0.w;
+        bsum[4] += c1.x; bsum[5] += c1.y; bsum[6] += c1.z; bsum[7] += c1.w;
+      }
+      if (two) {
+        const float* as2 = as + 2 * RB * TK;
+        const float* cs2 = cs + 2 * RB * TK;
+        fma_8x8(acc, *reinterpret_cast<const float4*>(as2 + kb),
+                *reinterpret_cast<const float4*>(as2 + kb + 16),
+                *reinterpret_cast<const float4*>(cs2 + jb),
+                *reinterpret_cast<const float4*>(cs2 + jb + 32));
+      }
+    }
+  }
+  float* part = p.partials + static_cast<size_t>(split) * p.per_split +
+                D.part_off;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int k = k0 + (i < 4 ? ty * 4 + i : 60 + ty * 4 + i);
+    const int k = k0 + kb + (i & 3) + (i >> 2) * 16;
     if (k >= D.k_dim) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int jj = j0 + (j < 4 ? tx * 4 + j : 60 + tx * 4 + j);
+      const int jj = j0 + jb + (j & 3) + (j >> 2) * 32;
       if (jj < D.nc) part[static_cast<size_t>(k) * D.nc + jj] = acc[i][j];
+    }
+  }
+  if (bias && kb == 0) {  // one thread of each column group writes
+    float* bpart = part + static_cast<size_t>(D.k_dim) * D.nc;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int jj = j0 + jb + (j & 3) + (j >> 2) * 32;
+      if (jj < D.nc) bpart[jj] = bsum[j];
     }
   }
 }
 
-// out = sum of the splits' partials, in split order.
+// out = sum of the splits' partials, in split order. A grad's partials are
+// its k_dim x nc kernel entries, then its nc bias entries if it has them.
 __global__ void trunk_wgrad_reduce_kernel(const __grid_constant__ WgParams p,
                                           int splits) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -392,20 +325,27 @@ __global__ void trunk_wgrad_reduce_kernel(const __grid_constant__ WgParams p,
   while (di + 1 < p.ndesc && p.desc[di + 1].part_off <= e) ++di;
   const WgDesc& D = p.desc[di];
   const long long local = e - D.part_off;
-  const int k = static_cast<int>(local / D.nc), j = static_cast<int>(local % D.nc);
   float s = 0.0f;
   for (int sp = 0; sp < splits; ++sp)
     s += p.partials[static_cast<size_t>(sp) * p.per_split + e];
-  D.out[static_cast<size_t>(k) * D.ldo + j] = s;
+  const long long kernel_size = static_cast<long long>(D.k_dim) * D.nc;
+  if (local < kernel_size) {
+    const int k = static_cast<int>(local / D.nc), j = static_cast<int>(local % D.nc);
+    D.out[static_cast<size_t>(k) * D.ldo + j] = s;
+  } else {
+    D.bias[local - kernel_size] = s;
+  }
 }
 
 }  // namespace
 
-// wptrs: five per layer (wf_h, wf_x, wr_h, wr_x, bias; 0 where unused), then
-// head_w, wa_t, wb_t (0 without a bottleneck). gptrs: (kernel grad, bias
-// grad) per layer, then the bottleneck's (0, 0 without one), then the head's.
-// e0 [N, hcu] is 1 in column 0 and 0 elsewhere. scratch holds
-// 4 * depth * N * 256 floats, partials splits * per_split floats.
+// wptrs: five per layer (wf_h, wf_x, wr_h, wr_x, bias; 0 where unused; wr_x
+// zero-padded to NW = 64 columns), then head_w, wa_t, wb_t (0 without a
+// bottleneck). gptrs: (kernel grad, bias grad) per layer, then the
+// bottleneck's (0, 0 without one), then the head's. feat and gbar have rows
+// of D rounded up to 4 floats, head_cot and e0 rows of HCMAX = 8 floats
+// (zero past hcu; e0 is 1 in column 0). scratch holds 4 * depth * N * 256
+// floats, partials splits * per_split floats.
 // Returns cudaGetLastError() of the launches.
 extern "C" int fused_trunk_bwd(const float* feat, const float* head_cot,
                                const float* tbar, const float* bbar,
@@ -419,6 +359,7 @@ extern "C" int fused_trunk_bwd(const float* feat, const float* head_cot,
       hc > HCMAX || hcu < 1 || hcu > hc || n < 1 || splits < 1 ||
       (skip_bits & 1u) || (has_bn && bbar == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int ldx = (d + 3) & ~3;
   BwdParams bp = {};
   for (int i = 0; i < depth; ++i) {
     bp.wf_h[i] = reinterpret_cast<const float*>(wptrs[5 * i]);
@@ -443,15 +384,15 @@ extern "C" int fused_trunk_bwd(const float* feat, const float* head_cot,
   long long off = 0;
   auto add = [&](const float* a, const float* a2, const float* c,
                  const float* c2, int lda, int ldc, int k_dim, int nc,
-                 float* out, int ldo) {
+                 float* out, int ldo, float* bias) {
     WgDesc& D = wp.desc[wp.ndesc++];
-    D.a = a; D.a2 = a2; D.c = c; D.c2 = c2; D.out = out;
+    D.a = a; D.a2 = a2; D.c = c; D.c2 = c2; D.out = out; D.bias = bias;
     D.lda = lda; D.ldc = ldc; D.k_dim = k_dim; D.nc = nc; D.ldo = ldo;
     D.tile_begin = tiles;
     D.j_tiles = (nc + TJ - 1) / TJ;
     D.part_off = off;
     tiles += ((k_dim + TK - 1) / TK) * D.j_tiles;
-    off += static_cast<long long>(k_dim) * nc;
+    off += static_cast<long long>(k_dim) * nc + (bias ? nc : 0);
   };
   for (int i = 0; i < depth; ++i) {
     float* dw = reinterpret_cast<float*>(gptrs[2 * i]);
@@ -459,28 +400,27 @@ extern "C" int fused_trunk_bwd(const float* feat, const float* head_cot,
     const float* c1 = c1_s + i * layer;
     const float* cg = cg_s + i * layer;
     if (i == 0) {
-      add(feat, gbar, c1, cg, d, WIDTH, d, WIDTH, dw, WIDTH);
+      add(feat, gbar, c1, cg, ldx, WIDTH, d, WIDTH, dw, WIDTH, db);
     } else {
       add(h_s + (i - 1) * layer, tau_s + (i - 1) * layer, c1, cg, WIDTH,
-          WIDTH, WIDTH, WIDTH, dw, WIDTH);
+          WIDTH, WIDTH, WIDTH, dw, WIDTH, db);
       if ((skip_bits >> i) & 1u)
-        add(feat, gbar, c1, cg, d, WIDTH, d, WIDTH, dw + WIDTH * WIDTH, WIDTH);
+        add(feat, gbar, c1, cg, ldx, WIDTH, d, WIDTH, dw + WIDTH * WIDTH,
+            WIDTH, nullptr);
     }
-    add(nullptr, nullptr, c1, nullptr, 1, WIDTH, 1, WIDTH, db, WIDTH);
   }
   const float* h_last = h_s + (depth - 1) * layer;
   if (has_bn) {
     float* dw = reinterpret_cast<float*>(gptrs[2 * depth]);
     float* db = reinterpret_cast<float*>(gptrs[2 * depth + 1]);
-    add(h_last, nullptr, bbar, nullptr, WIDTH, WIDTH, WIDTH, WIDTH, dw, WIDTH);
-    add(nullptr, nullptr, bbar, nullptr, 1, WIDTH, 1, WIDTH, db, WIDTH);
+    add(h_last, nullptr, bbar, nullptr, WIDTH, WIDTH, WIDTH, WIDTH, dw, WIDTH,
+        db);
   }
   {
     float* dw = reinterpret_cast<float*>(gptrs[2 * depth + 2]);
     float* db = reinterpret_cast<float*>(gptrs[2 * depth + 3]);
-    add(h_last, tau_s + (depth - 1) * layer, head_cot, e0, WIDTH, hcu, WIDTH,
-        hcu, dw, hc);
-    add(nullptr, nullptr, head_cot, nullptr, 1, hcu, 1, hcu, db, hcu);
+    add(h_last, tau_s + (depth - 1) * layer, head_cot, e0, WIDTH, HCMAX,
+        WIDTH, hcu, dw, hc, db);
   }
   if (off != per_split) return static_cast<int>(cudaErrorInvalidValue);
   wp.n = n;
@@ -489,18 +429,21 @@ extern "C" int fused_trunk_bwd(const float* feat, const float* head_cot,
   wp.partials = partials;
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = 2 * TM * LDH * 4 + 2 * TM * LDX * 4 + TM * HCMAX * 4 +
-                   depth * TM * 32;
+  const int smem = sweep_smem_bytes(depth);
   cudaError_t err = cudaFuncSetAttribute(
       trunk_bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   trunk_bwd_sweep_kernel<<<(n + TM - 1) / TM, NT, smem, st>>>(
-      feat, head_cot, tbar, bbar, gbar, n, d, depth, skip_bits, hc, hcu,
+      feat, head_cot, tbar, bbar, gbar, n, d, ldx, depth, skip_bits, hc, hcu,
       has_bn, bp, xbar, h_s, tau_s, c1_s, cg_s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_wgrad_kernel<<<dim3(tiles, splits), 256, 0, st>>>(wp);
+  err = cudaFuncSetAttribute(trunk_wgrad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WG_SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  trunk_wgrad_kernel<<<dim3(tiles, splits), 256, WG_SMEM_BYTES, st>>>(wp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   trunk_wgrad_reduce_kernel<<<static_cast<unsigned>((off + 255) / 256), 256, 0,

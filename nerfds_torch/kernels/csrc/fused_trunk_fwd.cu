@@ -10,19 +10,26 @@
 //
 // Bound: operations. The nerf_ds trunk (8 x 256, skip at 4, D = 52) does
 // about 1.04 M multiply-adds per row, forward and reverse, against about
-// 2.3 KB of input and output per row: far above the f32 CUDA-core ridge.
-// Design: a block owns a tile of 32 rows and keeps the tile's input, its
-// current activation and the relu masks of every layer in shared memory
-// (about 105 KB for depth 8, so two blocks fit on an SM); no per-layer
-// activation ever reaches device memory. Weights (about 2.3 MB) stream
-// through L1/L2: each warp reads one contiguous 1 KB weight row per step of
-// the contraction and every warp of the block reuses it from L1. Each thread
-// keeps a 4 x 8 register tile of the 32 x 256 layer output, so each weight
-// value loaded feeds four FMAs. The wrapper passes every weight in both
-// orientations ([in, out] for the forward, [out, in] for the reverse sweep),
-// so both directions read contiguous rows. Plain FMA loops; wgmma, TMA and
-// bf16 are later work. The Mosaic layout rule of the TPU kernel does not
-// apply here.
+// 2.3 KB of input and output per row: far above the f32 CUDA-core ridge
+// (16.2 ms at 67 TFLOP/s for a 524,288-row render chunk).
+//
+// Design (trunk_tile.cuh): a block owns 64 rows and keeps their input, the
+// current activation and the relu bits of every layer in shared memory; no
+// per-layer activation reaches device memory. Each layer is one product of
+// the k-major activation tile with a weight streamed through the cp.async
+// ring, so every weight element is read from L2 once per 64 rows and each
+// thread's 8 x 8 register tile does 64 FMAs per four shared loads. The
+// head, g and their weights (zero-padded to 64 columns by the wrapper) go
+// through the same ring with a 4 x 4 tile a thread. Sums run in k order
+// from the bias, in f32; no tensor cores.
+//
+// Shared memory a block (one block an SM, 8 warps):
+//   activation tile [256][68] f32   69,632 B
+//   input tile      [64][68] f32    17,408 B
+//   weight ring     3 x 16 x 256    49,152 B
+//   relu bits       depth x 2 KB    16,384 B at depth 8, 32,768 at 16
+//   total                          152,576 B at depth 8, 168,960 at 16
+// of the 232,448 B a block may use.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,156 +43,108 @@ struct TrunkParams {
   const float* wf_h[MAXD];  // forward weight read by h ([D,256] at layer 0)
   const float* wf_x[MAXD];  // forward weight read by feat at skip layers
   const float* wr_h[MAXD];  // reverse weight to h, [256 out, 256 in]
-  const float* wr_x[MAXD];  // reverse weight to feat, [256 out, D]
+  const float* wr_x[MAXD];  // reverse weight to feat, [256 out, NW]
   const float* b[MAXD];
-  const float* head_w;      // [256, hc]
+  const float* head_w;      // [256, NW]: the head's hc columns, zero-padded
   const float* head_b;      // [hc]
   const float* bn_w;        // [256, 256] or null
   const float* bn_b;        // [256] or null
 };
 
-__global__ void __launch_bounds__(NT, 2) fused_trunk_fwd_kernel(
+__host__ __device__ constexpr int fwd_smem_bytes(int depth) {
+  return (TILE_FLOATS + XTILE_FLOATS + RING_FLOATS) * 4 + depth * MASK_BYTES;
+}
+
+__global__ void __launch_bounds__(NT, 1) fused_trunk_fwd_kernel(
     const float* __restrict__ feat, int n, int d, int depth,
-    unsigned skip_bits, int hc, int norm_dim, int has_bn, TrunkParams p,
-    float* __restrict__ sigma_out, float* __restrict__ norm_out,
-    float* __restrict__ trunk_out, float* __restrict__ bn_out,
-    float* __restrict__ g_out) {
+    unsigned skip_bits, int hc, int norm_dim, int has_bn,
+    const __grid_constant__ TrunkParams p, float* __restrict__ sigma_out,
+    float* __restrict__ norm_out, float* __restrict__ trunk_out,
+    float* __restrict__ bn_out, float* __restrict__ g_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* hbuf = reinterpret_cast<float*>(smem);  // [TM][LDH]
-  float* xbuf = hbuf + TM * LDH;                 // [TM][LDX]
-  uint8_t* masks = reinterpret_cast<uint8_t*>(xbuf + TM * LDX);  // [depth][TM][WIDTH]
+  float* hbuf = reinterpret_cast<float*>(smem);  // [WIDTH][LDA]
+  float* xbuf = hbuf + TILE_FLOATS;              // [DMAX][LDA]
+  float* ring = xbuf + XTILE_FLOATS;             // [STAGES][CHUNK]
+  uint64_t* masks = reinterpret_cast<uint64_t*>(ring + RING_FLOATS);  // [depth][NT]
 
   const int t = threadIdx.x;
   const int row0 = blockIdx.x * TM;
-  for (int i = t; i < TM * d; i += NT) {
-    const int r = i / d, c = i - r * d;
-    const int gr = row0 + r;
-    xbuf[r * LDX + c] = gr < n ? feat[static_cast<size_t>(gr) * d + c] : 0.0f;
-  }
-  __syncthreads();
-
-  const int c0 = (t & 31) * 8, r0 = (t >> 5) * 4;
-  float acc[4][8];
+  load_narrow_tile(xbuf, feat, d, d, DMAX, row0, n);
 
   // Forward: h_i = relu(h_{i-1} W_i [+ feat Wx_i] + b_i); masks_i = h_i > 0.
+  float acc[8][8];
   for (int i = 0; i < depth; ++i) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = __ldg(p.b[i] + c0 + j);
+    fill_columns(acc, p.b[i], 1);
     if (i == 0) {
-      mm_wide(acc, xbuf, LDX, d, p.wf_h[0]);
+      mm_wide(acc, xbuf, d, p.wf_h[0], ring);
     } else {
-      mm_wide(acc, hbuf, LDH, WIDTH, p.wf_h[i]);
-      if ((skip_bits >> i) & 1u) mm_wide(acc, xbuf, LDX, d, p.wf_x[i]);
+      mm_wide(acc, hbuf, WIDTH, p.wf_h[i], ring);
+      if ((skip_bits >> i) & 1u) mm_wide(acc, xbuf, d, p.wf_x[i], ring);
     }
-    __syncthreads();  // every read of h_{i-1} is done
-    uint8_t* m = masks + static_cast<size_t>(i) * TM * WIDTH;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      unsigned long long bits = 0ull;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bool on = acc[r][j] > 0.0f;
-        bits |= static_cast<unsigned long long>(on) << (8 * j);
-        hbuf[(r0 + r) * LDH + c0 + j] = on ? acc[r][j] : 0.0f;
-      }
-      *reinterpret_cast<unsigned long long*>(m + (r0 + r) * WIDTH + c0) = bits;
-    }
-    __syncthreads();
+    masks[i * NT + t] = relu_bits(acc);
+    put_tile(hbuf, acc);  // every read of h_{i-1} ended at mm_wide's barrier
   }
-
-  // trunk_out.
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gr = row0 + r0 + r;
-    if (gr < n) {
-      float* dst = trunk_out + static_cast<size_t>(gr) * WIDTH + c0;
-      const float* src = hbuf + (r0 + r) * LDH + c0;
-      reinterpret_cast<float4*>(dst)[0] = make_float4(src[0], src[1], src[2], src[3]);
-      reinterpret_cast<float4*>(dst)[1] = make_float4(src[4], src[5], src[6], src[7]);
-    }
-  }
+  store_rows(trunk_out, row0, n, acc);
+  if (!has_bn) store_rows(bn_out, row0, n, acc);
 
   // Head: [sigma, normal] = h W_head + b_head.
   {
-    const int hc0 = (t & 7) * 8, hrow = t >> 3;
-    float hacc[8];
+    const int r0 = (t >> 4) * 4, c0 = (t & 15) * 4;
+    float hacc[4][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) hacc[j] = (hc0 + j < hc) ? __ldg(p.head_b + hc0 + j) : 0.0f;
-    mm_narrow(hacc, hbuf, LDH, WIDTH, p.head_w, hc);
-    const int gr = row0 + hrow;
-    if (gr < n && hc0 == 0) {
-      sigma_out[gr] = hacc[0];
-      for (int j = 0; j < norm_dim; ++j)
-        norm_out[static_cast<size_t>(gr) * norm_dim + j] = hacc[1 + j];
+    for (int j = 0; j < 4; ++j) {
+      const float bj = c0 + j < hc ? __ldg(p.head_b + c0 + j) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hacc[i][j] = bj;
+    }
+    mm_narrow(hacc, hbuf, WIDTH, p.head_w, ring);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gr = row0 + r0 + i;
+      if (gr >= n) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c0 + j;
+        if (col == 0) sigma_out[gr] = hacc[i][j];
+        else if (col <= norm_dim)
+          norm_out[static_cast<size_t>(gr) * norm_dim + col - 1] = hacc[i][j];
+      }
     }
   }
 
-  // Bottleneck (or trunk_out again when there is none).
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[r][j] = has_bn ? __ldg(p.bn_b + c0 + j) : hbuf[(r0 + r) * LDH + c0 + j];
-  if (has_bn) mm_wide(acc, hbuf, LDH, WIDTH, p.bn_w);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gr = row0 + r0 + r;
-    if (gr < n) {
-      float* dst = bn_out + static_cast<size_t>(gr) * WIDTH + c0;
-      reinterpret_cast<float4*>(dst)[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      reinterpret_cast<float4*>(dst)[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-    }
+  // Bottleneck.
+  if (has_bn) {
+    fill_columns(acc, p.bn_b, 1);
+    mm_wide(acc, hbuf, WIDTH, p.bn_w, ring);
+    store_rows(bn_out, row0, n, acc);
   }
-  __syncthreads();  // head and bottleneck have read h
 
   // Reverse sweep, seeded with the sigma column of the head:
   // c_i = r_i * mask_i; r_{i-1} = c_i Wh_i^T; g += c_i Wx_i^T at layer 0
-  // and at the skip layers.
-  {
-    const uint8_t* m = masks + static_cast<size_t>(depth - 1) * TM * WIDTH;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        hbuf[(r0 + r) * LDH + c0 + j] =
-            m[(r0 + r) * WIDTH + c0 + j] ? __ldg(p.head_w + (c0 + j) * hc) : 0.0f;
-  }
-  __syncthreads();
-  float gacc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  // and at the skip layers. The head and bottleneck have read h (barrier
+  // at the end of each product).
+  fill_columns(acc, p.head_w, NW);
+  apply_bits(acc, masks[(depth - 1) * NT + t]);
+  put_tile(hbuf, acc);
+  float gacc[4][4] = {};
   for (int i = depth - 1; i >= 0; --i) {
-    if (i == 0 || ((skip_bits >> i) & 1u)) mm_narrow(gacc, hbuf, LDH, WIDTH, p.wr_x[i], d);
+    if (i == 0 || ((skip_bits >> i) & 1u))
+      mm_narrow(gacc, hbuf, WIDTH, p.wr_x[i], ring);
     if (i > 0) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
-      mm_wide(acc, hbuf, LDH, WIDTH, p.wr_h[i]);
-      __syncthreads();  // every read of c_i is done
-      const uint8_t* m = masks + static_cast<size_t>(i - 1) * TM * WIDTH;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          hbuf[(r0 + r) * LDH + c0 + j] = m[(r0 + r) * WIDTH + c0 + j] ? acc[r][j] : 0.0f;
-      __syncthreads();
+      fill_tile(acc, 0.0f);
+      mm_wide(acc, hbuf, WIDTH, p.wr_h[i], ring);
+      apply_bits(acc, masks[(i - 1) * NT + t]);
+      put_tile(hbuf, acc);
     }
   }
-  {
-    const int gc0 = (t & 7) * 8, grow = row0 + (t >> 3);
-    if (grow < n) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (gc0 + j < d) g_out[static_cast<size_t>(grow) * d + gc0 + j] = gacc[j];
-    }
-  }
+  store_narrow(g_out, row0, n, d, gacc);
 }
 
 }  // namespace
 
 // ptrs: five per layer (wf_h, wf_x, wr_h, wr_x, bias; 0 where unused), then
-// head_w, head_b, bn_w, bn_b. Returns cudaGetLastError() of the launch.
+// head_w, head_b, bn_w, bn_b. wr_x and head_w are zero-padded to NW = 64
+// columns. Returns cudaGetLastError() of the launch.
 extern "C" int fused_trunk_fwd(const float* feat, const uint64_t* ptrs, int n,
                                int d, int depth, unsigned skip_bits, int hc,
                                int norm_dim, int has_bn, float* sigma,
@@ -207,7 +166,7 @@ extern "C" int fused_trunk_fwd(const float* feat, const uint64_t* ptrs, int n,
   p.bn_w = reinterpret_cast<const float*>(ptrs[5 * depth + 2]);
   p.bn_b = reinterpret_cast<const float*>(ptrs[5 * depth + 3]);
 
-  const int smem = TM * LDH * 4 + TM * LDX * 4 + depth * TM * WIDTH;
+  const int smem = fwd_smem_bytes(depth);
   cudaError_t err = cudaFuncSetAttribute(
       fused_trunk_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

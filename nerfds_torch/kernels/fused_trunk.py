@@ -35,17 +35,22 @@ import torch
 from nerfds_torch import kernels
 from nerfds_torch.kernels import build
 
-# Limits compiled into csrc/fused_trunk_fwd.cu and csrc/fused_trunk_bwd.cu.
+# Limits compiled into csrc/trunk_tile.cuh, csrc/fused_trunk_fwd.cu and
+# csrc/fused_trunk_bwd.cu (tests/test_torch_kernels.py reads them there).
+KERNEL_TILE_ROWS = 64      # rows a block of either kernel owns (TM)
 KERNEL_WIDTH = 256
 KERNEL_MAX_IN_DIM = 64
-KERNEL_MAX_DEPTH = 16
 KERNEL_MAX_HEAD = 8
+# Columns of a narrow weight (the reverse weights to feat, the forward's
+# head), zero-padded by the wrapper (NW).
+KERNEL_NARROW_WIDTH = 64
+KERNEL_MAX_DEPTH = 16
 # The backward passes its table of grads as one kernel parameter, which
 # bounds its depth.
 KERNEL_BWD_MAX_DEPTH = 12
 # Rows of the weight-grad reduction's fixed split (csrc/fused_trunk_bwd.cu).
-KERNEL_BWD_SPLIT_ROWS = 4096
-KERNEL_BWD_MAX_SPLITS = 16
+KERNEL_BWD_SPLIT_ROWS = 2048
+KERNEL_BWD_MAX_SPLITS = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +197,76 @@ def trunk_sigma_grad_backward_reference(
                             bottleneck=bn_grads)
 
 
+def kink_flip(feat: torch.Tensor, cots: Cotangents, weights: TrunkWeights,
+              spec: TrunkSpec, got_x: torch.Tensor) -> Optional[float]:
+  """Explains the backward's feat̄ ``got_x`` [1, D] of the one-row ``feat``
+  and ``cots`` as the exact (float64) result with every relu mask as it
+  falls, or with one mask flipped at a unit whose pre-activation lies
+  within 1e-4 of 0 (the 16 nearest), where float32 rounding may put it on
+  the other side. Returns |a| of the flipped unit (0.0 for none), or None
+  when no such result matches within atol 1e-4 + rtol 1e-4.
+
+  feat̄ depends on the forward values only through the masks, so a mask is
+  flipped by moving that unit's bias by -2a."""
+  f64 = lambda ts: tuple(t.double() if t is not None else None for t in ts)
+  w64 = TrunkWeights(
+      layers=[f64(layer) for layer in weights.layers],
+      head=f64(weights.head),
+      bottleneck=(f64(weights.bottleneck) if weights.bottleneck is not None
+                  else None))
+  x, c64, got = feat.double(), f64(cots), got_x.double()
+  pre, h = [], x
+  for i, (w, b) in enumerate(w64.layers):
+    a = (h @ w[:spec.width] + x @ w[spec.width:] + b if spec.is_skip(i)
+         else h @ w + b)
+    pre.append(a[0])
+    h = torch.relu(a)
+  near = sorted((abs(a[u].item()), i, u) for i, a in enumerate(pre)
+                for u in torch.nonzero(a.abs() < 1e-4).flatten().tolist())
+  for size, i, u in [(0.0, None, None), *near[:16]]:
+    layers = list(w64.layers)
+    if i is not None:
+      w, b = layers[i]
+      b = b.clone()
+      b[u] -= 2 * pre[i][u]
+      layers[i] = (w, b)
+    want = trunk_sigma_grad_backward_reference(
+        x, w64._replace(layers=layers), spec, c64)[0]
+    if bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()):
+      return size
+  return None
+
+
+def check_kink_rows(feat: torch.Tensor, weights: TrunkWeights,
+                    spec: TrunkSpec, cots: Cotangents, got_x: torch.Tensor,
+                    want_x: torch.Tensor):
+  """The relu-kink rule of the backward's checks on the card.
+
+  A row whose pre-activation lies within rounding of 0 may take the other
+  side of a relu kink in the kernel's recompute than in cuBLAS, which moves
+  that row's feat̄ and its share of every grad sum. Every row of the
+  kernel's ``got_x`` beyond atol 1e-4 + rtol 1e-4 of the plain version's
+  ``want_x`` must be proven by :func:`kink_flip`, and such rows may be at
+  most 1e-3 of N. Raises AssertionError otherwise. Returns (those rows as a
+  bool mask [N], their indices, |a| of the unit flipped at each); with
+  their cotangents zeroed they add nothing to any output.
+  """
+  bad = ((got_x - want_x).abs() > 1e-4 + 1e-4 * want_x.abs()).any(-1)
+  rows = torch.nonzero(bad).flatten().tolist()
+  flips = [kink_flip(feat[r:r + 1],
+                     tuple(c[r:r + 1] if c is not None else None
+                           for c in cots), weights, spec, got_x[r:r + 1])
+           for r in rows]
+  if None in flips:
+    raise AssertionError(
+        f'feat_bar: rows {[r for r, f in zip(rows, flips) if f is None]} '
+        'match no result with at most one relu flipped near a kink')
+  if len(rows) > 1e-3 * feat.shape[0]:
+    raise AssertionError(f'feat_bar: {len(rows)} rows of {feat.shape[0]} '
+                         f'beyond tolerance: {rows[:12]}')
+  return bad, rows, flips
+
+
 def _check(feat: torch.Tensor, weights: TrunkWeights, spec: TrunkSpec):
   if feat.dim() != 2 or feat.shape[1] != spec.in_dim:
     raise ValueError(f'feat must be [N, {spec.in_dim}], got '
@@ -235,7 +310,10 @@ def _layer_operands(weights: TrunkWeights, spec: TrunkSpec):
   """(tensors to keep alive, five pointers per trunk layer).
 
   Per layer: forward weights [in, out] and their transposes [out, in], so
-  that both the forward and the reverse sweeps read contiguous rows.
+  that both the forward and the reverse sweeps read contiguous rows. The
+  reverse weights to feat are zero-padded to ``KERNEL_NARROW_WIDTH``
+  columns. Both kernels take the same operands: ``TrunkSigmaGrad`` makes
+  them once for a forward and its backward.
   """
   keep, ptrs = [], []
   for i, (w, b) in enumerate(weights.layers):
@@ -246,11 +324,19 @@ def _layer_operands(weights: TrunkWeights, spec: TrunkSpec):
     # Reverse weights: to h for i > 0; to feat at layer 0 and the skips.
     wr_h = wf_h.T.contiguous() if i > 0 else None
     wr_x = wf_h if i == 0 else wf_x
-    wr_x = wr_x.T.contiguous() if wr_x is not None else None
+    wr_x = _pad_columns(wr_x.T, KERNEL_NARROW_WIDTH) if wr_x is not None \
+        else None
     layer = (wf_h, wf_x, wr_h, wr_x, b.contiguous())
     keep.extend(t for t in layer if t is not None)
     ptrs.extend(t.data_ptr() if t is not None else 0 for t in layer)
   return keep, ptrs
+
+
+def _pad_columns(x: torch.Tensor, cols: int) -> torch.Tensor:
+  """A contiguous copy of the 2-D ``x`` with zero columns up to ``cols``."""
+  out = x.new_zeros(x.shape[0], cols)
+  out[:, :x.shape[1]] = x
+  return out
 
 
 def _check_aligned(tensors):
@@ -263,17 +349,20 @@ def _stream(device):
   return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch(feat: torch.Tensor, weights: TrunkWeights,
-            spec: TrunkSpec) -> Outputs:
-  """Runs ``csrc/fused_trunk_fwd.cu`` on the current stream."""
+def _launch(feat: torch.Tensor, weights: TrunkWeights, spec: TrunkSpec,
+            operands=None) -> Outputs:
+  """Runs ``csrc/fused_trunk_fwd.cu`` on the current stream; ``operands``
+  are ``_layer_operands(weights, spec)``, made here when None."""
   head_w, head_b = (t.contiguous() for t in weights.head)
   hc = head_w.shape[1]
   _check_kernel_limits(spec, hc)
   n, d = feat.shape
   feat = feat.contiguous()
-  keep, ptrs = _layer_operands(weights, spec)
+  keep, ptrs = operands or _layer_operands(weights, spec)
+  ptrs = list(ptrs)
   bn = (tuple(t.contiguous() for t in weights.bottleneck)
         if weights.bottleneck is not None else (None, None))
+  head_w = _pad_columns(head_w, KERNEL_NARROW_WIDTH)
   for t in (head_w, head_b, *bn):
     ptrs.append(t.data_ptr() if t is not None else 0)
   _check_aligned([*keep, head_w, head_b, *bn])
@@ -307,10 +396,11 @@ def backward_splits(n: int) -> int:
 
 
 def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
-                     spec: TrunkSpec, cots: Cotangents
+                     spec: TrunkSpec, cots: Cotangents, operands=None
                      ) -> Tuple[torch.Tensor, TrunkWeights]:
   """Runs ``csrc/fused_trunk_bwd.cu`` on the current stream: the sweeps,
-  then the weight-grad reduction in a fixed order."""
+  then the weight-grad reduction in a fixed order. ``operands`` as for
+  ``_launch``."""
   head_w = weights.head[0].contiguous()
   hc = head_w.shape[1]
   _check_kernel_limits(spec, hc)
@@ -321,19 +411,25 @@ def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
   hcu = spec.alpha_channels + spec.norm_dim
   sbar, nbar, tbar, bbar, gbar = cots
   dev = feat.device
-  feat, tbar, gbar = (t.contiguous() for t in (feat, tbar, gbar))
-  head_cot = (torch.cat([sbar, nbar], -1) if spec.norm_dim > 0
-              else sbar).contiguous()
+  tbar = tbar.contiguous()
+  # The kernel's 16-byte copies need rows of a multiple of 4 floats: feat
+  # and Ḡ padded to D rounded up to 4, the head cotangent to 8 columns.
+  ldx = -(-d // 4) * 4
+  feat_k, gbar_k = ((_pad_columns(x, ldx) if ldx != d else x.contiguous())
+                    for x in (feat, gbar))
+  head_cot = _pad_columns(torch.cat([sbar, nbar], -1) if spec.norm_dim > 0
+                          else sbar, KERNEL_MAX_HEAD)
   bbar = bbar.contiguous() if spec.has_bottleneck else None
-  keep, ptrs = _layer_operands(weights, spec)
+  keep, ptrs = operands or _layer_operands(weights, spec)
+  ptrs = list(ptrs)
   # Transposed head (its used columns) and bottleneck for the seed of r.
   wa_t = head_w[:, :hcu].T.contiguous()
   wb_t = (weights.bottleneck[0].T.contiguous() if spec.has_bottleneck
           else None)
   for t in (head_w, wa_t, wb_t):
     ptrs.append(t.data_ptr() if t is not None else 0)
-  _check_aligned([*keep, head_w, wa_t, wb_t, feat, head_cot, tbar, bbar,
-                  gbar])
+  _check_aligned([*keep, head_w, wa_t, wb_t, feat_k, head_cot, tbar, bbar,
+                  gbar_k])
 
   zeros = lambda t: torch.zeros_like(t, memory_format=torch.contiguous_format)
   grads = TrunkWeights(
@@ -355,7 +451,7 @@ def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
   per_split += (spec.width + 1) * hcu
   splits = backward_splits(n)
   # e0: the unit column that adds Σ_rows τ_L into the σ column of the head.
-  e0 = torch.zeros(n, hcu, device=dev, dtype=torch.float32)
+  e0 = torch.zeros(n, KERNEL_MAX_HEAD, device=dev, dtype=torch.float32)
   e0[:, 0] = 1.0
   # Device-memory scratch of the sweeps: h_i, τ_i, c1_i and c_g,i for every
   # layer, 4·depth·N·W float32 (2.1 GB at depth 8, N = 65,536).
@@ -369,8 +465,8 @@ def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
   lib = build.load_library()
   with torch.cuda.device(dev):
     rc = lib.fused_trunk_bwd(
-        feat.data_ptr(), head_cot.data_ptr(), tbar.data_ptr(),
-        bbar.data_ptr() if bbar is not None else 0, gbar.data_ptr(),
+        feat_k.data_ptr(), head_cot.data_ptr(), tbar.data_ptr(),
+        bbar.data_ptr() if bbar is not None else 0, gbar_k.data_ptr(),
         wptr_array, gptr_array, e0.data_ptr(), n, d, spec.depth, skip_bits,
         hc, hcu, int(spec.has_bottleneck), splits, per_split,
         xbar.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
@@ -380,27 +476,32 @@ def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
   return xbar, grads
 
 
-def _dispatch(feat, kernel, plain, *args):
+def _dispatch(feat, kernel, plain, *args, operands=None):
   if feat.device.type == 'cuda':
-    return kernel(feat, *args)
+    return kernel(feat, *args, operands=operands)
   if feat.device.type == 'cpu':
     return plain(feat, *args)
   raise ValueError(f'no fused trunk path for device {feat.device}')
 
 
 def trunk_sigma_grad_forward(feat: torch.Tensor, weights: TrunkWeights,
-                             spec: TrunkSpec) -> Outputs:
+                             spec: TrunkSpec, operands=None) -> Outputs:
   """The forward on feat's device, without autograd: the kernel for CUDA
-  tensors, the plain version for CPU tensors."""
+  tensors, the plain version for CPU tensors. ``operands``: the kernel's
+  weight operands, made once by a caller that also runs the backward on
+  the same weights (``TrunkSigmaGrad``); made here when None."""
   _check(feat, weights, spec)
-  return _dispatch(feat, _launch, trunk_sigma_grad_reference, weights, spec)
+  return _dispatch(feat, _launch, trunk_sigma_grad_reference, weights, spec,
+                   operands=operands)
 
 
 def trunk_sigma_grad_backward(feat: torch.Tensor, weights: TrunkWeights,
-                              spec: TrunkSpec, cots: Cotangents
+                              spec: TrunkSpec, cots: Cotangents,
+                              operands=None
                               ) -> Tuple[torch.Tensor, TrunkWeights]:
   """The backward on feat's device: the kernel for CUDA tensors, the plain
-  version for CPU tensors. See :func:`trunk_sigma_grad_backward_reference`.
+  version for CPU tensors. See :func:`trunk_sigma_grad_backward_reference`;
+  ``operands`` as for :func:`trunk_sigma_grad_forward`.
   """
   _check(feat, weights, spec)
   cols = {'σ̄': spec.alpha_channels, 'n̄': spec.norm_dim, 'T̄': spec.width,
@@ -413,7 +514,8 @@ def trunk_sigma_grad_backward(feat: torch.Tensor, weights: TrunkWeights,
       raise ValueError(f'{name}: {tuple(t.shape)} {t.dtype} on {t.device}; '
                        f'want ({feat.shape[0]}, {c}) float32')
   return _dispatch(feat, _launch_backward,
-                   trunk_sigma_grad_backward_reference, weights, spec, cots)
+                   trunk_sigma_grad_backward_reference, weights, spec, cots,
+                   operands=operands)
 
 
 def _flatten(weights: TrunkWeights):
@@ -437,7 +539,14 @@ class TrunkSigmaGrad(torch.autograd.Function):
   def forward(ctx, feat, spec, *flat):
     ctx.spec = spec
     ctx.save_for_backward(feat, *flat)
-    return trunk_sigma_grad_forward(feat, _unflatten(flat, spec), spec)
+    weights = _unflatten(flat, spec)
+    # The kernels' transposed and padded weights, made once for K1f and K1b.
+    ctx.operands = None
+    if feat.device.type == 'cuda':
+      _check(feat, weights, spec)
+      _check_kernel_limits(spec, weights.head[0].shape[1])
+      ctx.operands = _layer_operands(weights, spec)
+    return trunk_sigma_grad_forward(feat, weights, spec, ctx.operands)
 
   @staticmethod
   @torch.autograd.function.once_differentiable
@@ -456,7 +565,8 @@ class TrunkSigmaGrad(torch.autograd.Function):
       # The bottleneck output is the trunk output: fold its cotangent in.
       tbar, bbar = tbar + bbar, torch.zeros_like(bbar)
     xbar, grads = trunk_sigma_grad_backward(
-        feat, _unflatten(flat, spec), spec, (sbar, nbar, tbar, bbar, gbar))
+        feat, _unflatten(flat, spec), spec, (sbar, nbar, tbar, bbar, gbar),
+        ctx.operands)
     return (xbar, None, *_flatten(grads))
 
 

@@ -51,18 +51,24 @@ def test_composite_kernel_matches_plain_on_card(cuda, sample_at_infinity):
     torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.cuda
-def test_fused_trunk_kernel_matches_plain_on_card(cuda):
-  gen = torch.Generator().manual_seed(0)
+def nerf_ds_trunk(cuda, gen):
+  """The nerf_ds NeRF trunk (8x256, skip at 4, 52 inputs, σ + normal head,
+  bottleneck) on the card."""
   tm = NerfMLP(52, 0, 0, True, trunk_depth=8, trunk_width=256, skips=(4,),
                predict_norm=True, generator=gen).to(cuda)
   spec = tft.TrunkSpec(depth=8, width=256, skips=(4,), in_dim=52,
                        alpha_channels=1, norm_dim=3, has_bottleneck=True)
-  feat = torch.rand(4099, 52, generator=gen).to(cuda) * 2 - 1
+  return spec, tm.trunk_weights()
+
+
+def check_trunk_forward(cuda, n, seed):
+  gen = torch.Generator().manual_seed(seed)
+  spec, weights = nerf_ds_trunk(cuda, gen)
+  feat = torch.rand(n, 52, generator=gen).to(cuda) * 2 - 1
   with torch.no_grad():
     before = kernels.launch_counts['fused_trunk_fwd']
-    got = tft.trunk_sigma_grad(feat, tm.trunk_weights(), spec)
-    want = tft.trunk_sigma_grad_reference(feat, tm.trunk_weights(), spec)
+    got = tft.trunk_sigma_grad(feat, weights, spec)
+    want = tft.trunk_sigma_grad_reference(feat, weights, spec)
   assert kernels.launch_counts['fused_trunk_fwd'] == before + 1
   for name, g, w in zip(('sigma', 'normal', 'trunk', 'bneck'), got, want):
     torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
@@ -73,17 +79,38 @@ def test_fused_trunk_kernel_matches_plain_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_fused_trunk_backward_kernel_matches_plain_on_card(cuda):
-  gen = torch.Generator().manual_seed(1)
-  tm = NerfMLP(52, 0, 0, True, trunk_depth=8, trunk_width=256, skips=(4,),
-               predict_norm=True, generator=gen).to(cuda)
-  spec = tft.TrunkSpec(depth=8, width=256, skips=(4,), in_dim=52,
-                       alpha_channels=1, norm_dim=3, has_bottleneck=True)
-  n = 4099  # a ragged last tile and a ragged last weight-grad split
+def test_fused_trunk_kernel_matches_plain_on_card(cuda):
+  check_trunk_forward(cuda, 4099, seed=0)
+
+
+# Row counts at the edges of the kernels' row tile: one row, a tile short
+# of one row, one row into a second tile, and whole tiles (4096 rows: two
+# whole weight-grad splits of the backward).
+TILE_EDGES = (1, tft.KERNEL_TILE_ROWS - 1, tft.KERNEL_TILE_ROWS + 1,
+              64 * tft.KERNEL_TILE_ROWS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', TILE_EDGES)
+def test_fused_trunk_kernel_at_tile_edges(cuda, n):
+  check_trunk_forward(cuda, n, seed=n)
+
+
+def check_trunk_backward(cuda, n, seed):
+  gen = torch.Generator().manual_seed(seed)
+  spec, weights = nerf_ds_trunk(cuda, gen)
   feat = (torch.rand(n, 52, generator=gen) * 2 - 1).to(cuda)
   cots = tuple(torch.randn(n, c, generator=gen).to(cuda)
                for c in (1, 3, 256, 256, 52))
-  weights = tm.trunk_weights()
+  # Rows at relu kinks, as in chip_smoke.py: each feat_bar row beyond
+  # tolerance must be proven exact with one mask flipped, such rows are at
+  # most 1e-3 of N, and with their cotangents zeroed everything must agree.
+  with torch.no_grad():
+    got_x, _ = tft.trunk_sigma_grad_backward(feat, weights, spec, cots)
+    want_x, _ = tft.trunk_sigma_grad_backward_reference(feat, weights, spec,
+                                                        cots)
+    bad, _, _ = tft.check_kink_rows(feat, weights, spec, cots, got_x, want_x)
+    cots = tuple(c * (~bad).float()[:, None] for c in cots)
   with torch.no_grad():
     before = kernels.launch_counts['fused_trunk_bwd']
     got_x, got_w = tft.trunk_sigma_grad_backward(feat, weights, spec, cots)
@@ -95,12 +122,23 @@ def test_fused_trunk_backward_kernel_matches_plain_on_card(cuda):
   got, again, want = (tft._flatten(w) for w in (got_w, again_w, want_w))
   for g, a in zip([got_x, *got], [again_x, *again]):
     assert torch.equal(g, a)  # fixed summation order: the same bits
-  # Tolerance relative to each tensor's norm: sums over up to 4099 rows in
-  # another order than cuBLAS, and rows whose pre-activation lies within
-  # rounding of 0 may take the other side of a relu kink.
+  # Tolerance relative to each tensor's norm: sums over up to N rows in
+  # another order than cuBLAS.
   for i, (g, w) in enumerate(zip([got_x, *got], [want_x, *want])):
     rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
     assert rel < 1e-4, (i, rel)
+
+
+@pytest.mark.cuda
+def test_fused_trunk_backward_kernel_matches_plain_on_card(cuda):
+  # A ragged last tile and a ragged last weight-grad split.
+  check_trunk_backward(cuda, 4099, seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', TILE_EDGES)
+def test_fused_trunk_backward_kernel_at_tile_edges(cuda, n):
+  check_trunk_backward(cuda, n, seed=n + 1)
 
 
 @pytest.mark.cuda

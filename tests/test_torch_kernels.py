@@ -4,6 +4,9 @@ own kernel tests run them), the backward's autograd Function, and the
 wrappers' routing. The kernels themselves are held against their plain
 versions on the card by ``tests/test_torch_cuda.py``.
 """
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -163,6 +166,45 @@ def test_fused_trunk_wrapper_checks_inputs():
       tft._check_kernel_limits(tspec, 4)
 
 
+def cuda_constants(name):
+  """The literal ``constexpr int`` values of a source in kernels/csrc."""
+  text = (pathlib.Path(tft.__file__).parent / 'csrc' / name).read_text()
+  return {m.group(1): int(m.group(2))
+          for m in re.finditer(r'constexpr int (\w+) = (\d+);', text)}
+
+
+def test_trunk_kernel_constants_match_the_cuda_sources():
+  """The wrapper's tile rows and limits are those compiled into the trunk
+  kernels, and a block's shared memory fits the H100's 232,448 bytes at
+  the deepest trunk each kernel takes."""
+  tile = cuda_constants('trunk_tile.cuh')
+  fwd = cuda_constants('fused_trunk_fwd.cu')
+  bwd = cuda_constants('fused_trunk_bwd.cu')
+  assert tile['TM'] == tft.KERNEL_TILE_ROWS
+  assert tile['WIDTH'] == tft.KERNEL_WIDTH
+  assert tile['DMAX'] == tft.KERNEL_MAX_IN_DIM
+  assert tile['HCMAX'] == tft.KERNEL_MAX_HEAD
+  assert tile['NW'] == tft.KERNEL_NARROW_WIDTH
+  assert fwd['MAXD'] == tft.KERNEL_MAX_DEPTH
+  assert bwd['MAXD'] == tft.KERNEL_BWD_MAX_DEPTH
+  # trunk_tile.cuh's layout: [256][TM + 4] activation tiles, a
+  # [DMAX][TM + 4] input tile, STAGES chunks of KC weight rows, 2 KB of
+  # relu bits a layer.
+  act = 4 * tile['WIDTH'] * (tile['TM'] + 4)
+  ring = 4 * tile['STAGES'] * tile['KC'] * tile['WIDTH']
+  bits = 8 * tile['NT']
+  fwd_bytes = (act + 4 * tile['DMAX'] * (tile['TM'] + 4) + ring
+               + bits * tft.KERNEL_MAX_DEPTH)
+  bwd_bytes = 2 * act + ring + bits * tft.KERNEL_BWD_MAX_DEPTH
+  assert fwd_bytes <= 232_448 and bwd_bytes <= 232_448, (fwd_bytes,
+                                                         bwd_bytes)
+  # The backward's row splits depend on N alone, and cover every row.
+  for n in (1, 2047, 2048, 4099, 32_768, 65_536, 10**6):
+    splits = tft.backward_splits(n)
+    assert 1 <= splits <= tft.KERNEL_BWD_MAX_SPLITS
+    assert splits * -(-n // splits) >= n
+
+
 def trunk_cotangents(spec, n, seed, only_gbar=False):
   """Seeded cotangents (σ̄, n̄, T̄, B̄, Ḡ) as numpy; n̄ is [N, 1] zeros
   without a normal, as the JAX kernel takes it."""
@@ -235,6 +277,44 @@ def test_trunk_sigma_grad_function_matches_double_autograd(norm_dim,
       leaves)
   for i, (g, w) in enumerate(zip(got, want)):
     torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=f'leaf {i}')
+
+
+@pytest.mark.parametrize('row_is', ['flipped_at_kink', 'wrong'])
+def test_check_kink_rows(row_is):
+  """The card checks' relu-kink rule: a feat̄ row computed with one relu
+  flipped at a unit 5e-5 from its kink is proven and reported; a row that
+  is wrong otherwise fails the check."""
+  n, row, size = 1000, 7, 5e-5
+  _, _, tm, tspec, feat = trunk_case(n=n, seed=6)
+  x = t(feat)
+  cots = to_port_cots(trunk_cotangents(tspec, n, seed=7), tspec)
+  with torch.no_grad():
+    weights = tm.trunk_weights()
+    w0, b0 = weights.layers[0]
+    pre = x[row] @ w0 + b0
+    unit = int(torch.argmax(pre))
+    # Move the unit's bias so that its pre-activation at the row is +size.
+    near = b0.clone()
+    near[unit] -= pre[unit] - size
+    weights = weights._replace(layers=[(w0, near), *weights.layers[1:]])
+    want_x, _ = tft.trunk_sigma_grad_backward_reference(x, weights, tspec,
+                                                        cots)
+    got_x = want_x.clone()
+    if row_is == 'wrong':
+      got_x[row] += 1.0
+      with pytest.raises(AssertionError, match='match no result'):
+        tft.check_kink_rows(x, weights, tspec, cots, got_x, want_x)
+      return
+    flipped = near.clone()
+    flipped[unit] -= 2 * size
+    got_x[row] = tft.trunk_sigma_grad_backward_reference(
+        x[row:row + 1], weights._replace(
+            layers=[(w0, flipped), *weights.layers[1:]]), tspec,
+        tuple(c[row:row + 1] if c is not None else None for c in cots))[0][0]
+    bad, rows, flips = tft.check_kink_rows(x, weights, tspec, cots, got_x,
+                                           want_x)
+  assert rows == [row] and bool(bad[row]) and int(bad.sum()) == 1
+  assert flips[0] == pytest.approx(size, rel=1e-2)
 
 
 def test_trunk_sigma_grad_function_refuses_double_backward():
