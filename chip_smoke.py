@@ -6,7 +6,8 @@
 1. Prints the card (``nvidia-smi``), fails without CUDA, and builds the
    hand-written kernels from ``nerfds_torch/kernels/csrc``.
 2. K2, compositing forward: kernel against its plain PyTorch version, at
-   the render and the training shapes.
+   the render and the training shapes, S = 12 and a ragged R; each timed
+   shape by its device time as a share of its bound.
 3. K1f, trunk forward with ∂σ/∂feat: kernel against its plain version, at
    the render and the training shapes, each timed as a share of its bound.
 4. Renders a 128x128 image with the full-width ``nerf_ds()`` model through
@@ -17,8 +18,9 @@
    bits; timed at both training shapes, split into the sweep, the weight
    grads and their reduction by the profiler.
 6. K3, the whole-MLP forward: kernel against its plain version at every
-   ``nerf_ds()`` MLP shape (the NeRF trunk also at a render chunk's sample
-   rows), a ragged N, N = 0, each activation and bf16 compute.
+   ``nerf_ds()`` MLP shape, each also at a render chunk's sample rows
+   (timed as a share of its bound), at the edges of the 64-row tile, a
+   ragged N and N = 0; each activation and bf16 compute.
 7. Trains the full-width ``nerf_ds()`` on the synthetic scene for 24 steps
    at batch 512 through ``Trainer.train`` (K1f, K1b and K2 twice a step,
    checked), compares the kernel path's gradients with the plain path's,
@@ -28,12 +30,14 @@
    experiment directory, resumed from its checkpoint, then the eval CLI
    (K2 on every eval chunk, K1f never); ``eval_psnr`` of the restored state
    on the kernel and plain paths; K3 through ``fused_apply`` on every MLP
-   of the restored model, fed what each received in one render chunk.
+   of the restored model, fed what each received in one render chunk, each
+   timed as a share of its bound.
 9. Prints one JSON line describing every kernel ("launches": the render's
    count for K1f and K2, the training run's for K1b, the eval path's for
    K3; "launches_render" and "launches_train" for all four), a line of the
    training numbers, a line of the eval numbers, the card's line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+   the last line ``{"ok": true, "device": {...}}``. K2's and K3's entries
+   hold their times at every timed shape under "shapes".
 
 TF32 is switched off for matmuls and convolutions, so every plain version
 runs in full float32 like the kernels. Exits nonzero at the first failure.
@@ -59,9 +63,14 @@ K1B_SIZES = (TRAIN_BATCH * 64, TRAIN_BATCH * 128, 4099)
 # K1f's main-path shapes: the coarse and fine rows of a 4096-ray render
 # chunk and of a training batch.
 K1F_MAIN_SIZES = (4096 * 64, 4096 * 128, TRAIN_BATCH * 64, TRAIN_BATCH * 128)
-# K3's check: the render chunk's sample rows (4096 rays x 128 samples), a
-# ragged N (the last 32-row tile is partial) and none.
-K3_SIZES = (4096 * 128, 4099, 0)
+# K3's check: the render chunk's sample rows (4096 rays x 128 samples,
+# timed), a ragged N, the edges of the 64-row tile and none.
+K3_SIZES = (4096 * 128, 4099, 65, 63, 1, 0)
+# K2's shapes (rays, samples): the render chunk, R = 8192 and a training
+# batch at both levels' samples, timed; a ragged R at synthetic_smoke's 12
+# samples and one past a 128-sample pass, checked only.
+K2_SHAPES = ((4096, 64), (4096, 128), (8192, 64), (8192, 128), (512, 64),
+             (512, 128), (4099, 12), (4099, 129))
 # The eval phase: the train CLI's first run and the step its second resumes
 # to.
 EVAL_STEPS = (24, 30)
@@ -91,6 +100,27 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, n: int = 20, match: str = '', flush=None) -> float:
+  """Device time a call of ``fn``, by the profiler: the kernels and copies
+  it ran on the card whose name holds ``match``, without the host's time
+  between launches (for kernels that take less time than their wrapper's
+  Python). With ``flush``, a buffer larger than the L2 cache written before
+  each call, the call finds its inputs in device memory, not in L2."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    for _ in range(n):
+      if flush is not None:
+        flush.zero_()
+      fn()
+    torch.cuda.synchronize()
+  return sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and match in e.key) / 1e3 / n
 
 
 def compare(torch, name, got, want, atol, rtol, max_bad_frac=0.0):
@@ -135,43 +165,57 @@ def composite_bound(r: int, s: int):
 
 
 def phase_composite(torch, device):
-  """K2 at the chunk shapes of the render path and at R=8192."""
+  """K2 at the chunk shapes of the render path, R=8192, the training
+  batch, and a ragged R at S = 12 and S = 129. A launch takes a few µs, less
+  than its wrapper's Python, so each timed shape is timed by the profiler's
+  device time ("ms", "plain_ms"); "events_ms" is the older measure, CUDA
+  events around 20 back-to-back calls, which the host's time then sets."""
   from nerfds_torch.kernels import composite
   print('== K2 composite_fwd vs plain version')
   gen = torch.Generator(device=device).manual_seed(0)
   names = ('rgb', 'depth', 'acc_all', 'weights', 'alpha', 'accum')
-  # Tolerance: float32; the kernel's sequential running product and sums
-  # associate differently from torch.cumprod / torch.sum.
+  # Tolerance: float32; the kernel forms the running product by a warp scan
+  # (a tree of products over 32 samples, then the product of the earlier
+  # chunks) and sums by lanes and a butterfly, so it associates differently
+  # from torch.cumprod / torch.sum: a relative error of a few float32 ulps
+  # per factor over up to 129 factors.
   atol, rtol = 1e-5, 1e-4
-  max_err, main, train = 0.0, None, {}
-  # The render chunk (4096 rays) and R=8192, and a 512-ray training batch.
-  for num_rays in (4096, 8192, 512):
-    for num_samples in (64, 128):
-      args = composite_inputs(torch, num_rays, num_samples, gen, device)
-      for at_inf in (True, False):
-        got = composite.composite_forward(*args, at_inf)
-        want = composite.composite_reference(*args, at_inf)
-        torch.cuda.synchronize()
-        print(f' R={num_rays} S={num_samples} sample_at_infinity={at_inf}')
-        for n, g, w in zip(names, got, want):
-          max_err = max(max_err, compare(torch, n, g, w, atol, rtol))
-      ms = time_ms(torch, lambda: composite.composite_forward(*args), 20)
-      plain_ms = time_ms(
-          torch, lambda: composite.composite_reference(*args), 20)
-      print(f'  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-      if num_rays == 512:
-        train[f'train_ms_s{num_samples}'] = ms
-        train[f'train_plain_ms_s{num_samples}'] = plain_ms
-        train[f'train_bound_ms_s{num_samples}'] = composite_bound(
-            num_rays, num_samples)[0]
-      if (num_rays, num_samples) == (4096, 128):
-        bound_ms, bound_by = composite_bound(num_rays, num_samples)
-        main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by)
+  max_err, main, shapes = 0.0, None, {}
+  flush = torch.empty(2**26, device=device)  # 256 MB, five times the L2
+  for num_rays, num_samples in K2_SHAPES:
+    args = composite_inputs(torch, num_rays, num_samples, gen, device)
+    for at_inf in (True, False):
+      got = composite.composite_forward(*args, at_inf)
+      want = composite.composite_reference(*args, at_inf)
+      torch.cuda.synchronize()
+      print(f' R={num_rays} S={num_samples} sample_at_infinity={at_inf}')
+      for n, g, w in zip(names, got, want):
+        max_err = max(max_err, compare(torch, n, g, w, atol, rtol))
+    if num_rays == 4099:
+      continue
+    ms = device_ms(torch, lambda: composite.composite_forward(*args))
+    plain_ms = device_ms(torch, lambda: composite.composite_reference(*args))
+    events_ms = time_ms(torch, lambda: composite.composite_forward(*args), 20)
+    # The same launches after the L2 cache is flushed: the inputs come
+    # from device memory, as the bytes bound assumes.
+    cold_ms = device_ms(torch, lambda: composite.composite_forward(*args),
+                        match='composite_fwd_kernel', flush=flush)
+    bound_ms, bound_by = composite_bound(num_rays, num_samples)
+    print(f'  time: kernel {ms:.5f} ms on the card ({events_ms:.5f} ms by '
+          f'events back to back), plain {plain_ms:.5f} ms on the card, bound '
+          f'{bound_ms:.5f} ms ({bound_by}): {bound_ms / ms:.1%} of the bound; '
+          f'after an L2 flush {cold_ms:.5f} ms, {bound_ms / cold_ms:.1%}')
+    shapes[f'R={num_rays} S={num_samples}'] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, events_ms=events_ms,
+        cold_ms=cold_ms)
+    if (num_rays, num_samples) == (4096, 128):
+      main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, events_ms=events_ms, cold_ms=cold_ms)
+  del flush
   return dict(name='composite_fwd', route='cuda',
               source='nerfds_torch/kernels/csrc/composite.cu',
               replaces='nerfds_tpu/pallas/composite.py:49',
-              max_abs_err=max_err, library_ms=None, **main, **train)
+              max_abs_err=max_err, library_ms=None, **main, shapes=shapes)
 
 
 def nerf_ds_trunk(torch, device, seed):
@@ -259,9 +303,10 @@ def nerf_ds_mlps(torch, device, seed):
 
 
 def phase_fused_mlp(torch, device):
-  """K3 against its plain version at every nerf_ds() MLP shape (the NeRF
-  trunk also at the render chunk's sample rows), a ragged N and N = 0,
-  each activation, and bf16 compute."""
+  """K3 against its plain version at every nerf_ds() MLP shape, each also
+  at the render chunk's sample rows (timed as a share of its bound), at
+  the 64-row tile's edges, a ragged N and N = 0; each activation, and bf16
+  compute."""
   from nerfds_torch.kernels import fused_mlp
   from nerfds_torch.models.mlp import MLP
   print('== K3 fused_mlp_fwd vs plain version')
@@ -272,11 +317,11 @@ def phase_fused_mlp(torch, device):
     mlps[f'act={act}'] = MLP(52, 3, 128, (2,), act or 'none',
                              output_channels=3, output_activation=act,
                              generator=gen).to(device)
-  max_err, main = 0.0, None
+  max_err, main, shapes = 0.0, None, {}
   with torch.no_grad():
     for name, mlp in mlps.items():
       layers, has_out = fused_mlp.mlp_params_to_layers(mlp, None)
-      sizes = K3_SIZES if name == 'nerf.coarse.trunk' else K3_SIZES[1:]
+      sizes = K3_SIZES[1:] if name.startswith('act=') else K3_SIZES
       for n in sizes:
         gen = torch.Generator(device=device).manual_seed(n + 5)
         x = torch.rand(n, mlp.in_dim, generator=gen, device=device) * 2 - 1
@@ -302,10 +347,14 @@ def phase_fused_mlp(torch, device):
               x, layers, mlp.skips, mlp.hidden_activation,
               mlp.output_activation, has_out), 5, warmup=1)
           tflop, bound_ms, bound_by = mlp_forward_bound(layers, n)
-          main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by)
+          shapes[name] = dict(n=n, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+          if name == 'nerf.coarse.trunk':
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
           print(f'  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-                f'{bound_ms:.3f} ms ({tflop:.4f} TFLOP, {bound_by})')
+                f'{bound_ms:.3f} ms ({tflop:.4f} TFLOP, {bound_by}): '
+                f'{bound_ms / ms:.1%} of the bound')
         del x, got, want
     # bf16 compute. Tolerance: bf16 keeps 8 significant bits. The kernel's
     # f32 sums differ from cuBLAS's in the last bits, so a sum that lies
@@ -331,7 +380,7 @@ def phase_fused_mlp(torch, device):
   return dict(name='fused_mlp_fwd', route='cuda',
               source='nerfds_torch/kernels/csrc/fused_mlp_fwd.cu',
               replaces='nerfds_tpu/pallas/fused_mlp.py:48',
-              max_abs_err=max_err, library_ms=None, **main)
+              max_abs_err=max_err, library_ms=None, **main, shapes=shapes)
 
 
 def phase_fused_trunk(torch, device):
@@ -932,8 +981,11 @@ def phase_eval(torch, device):
     for (name, mod, x, want), g in zip(captured, got):
       ms = time_ms(torch, lambda: fused_mlp.fused_apply(mod, None, x), 3,
                    warmup=1)
+      _, bound_ms, bound_by = mlp_forward_bound(
+          fused_mlp.mlp_params_to_layers(mod, None)[0], x.shape[0])
       print(f'  {name}: {x.shape[0]} rows, {x.shape[1]} in, kernel '
-            f'{ms:.3f} ms')
+            f'{ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}): '
+            f'{bound_ms / ms:.1%} of the bound')
       # The render-agreement tolerance: float32 in another order.
       compare(torch, name, g, want, 1e-4, 1e-4)
     del captured, got

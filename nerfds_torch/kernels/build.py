@@ -37,7 +37,7 @@ SIGNATURES = {
                         ctypes.POINTER(ctypes.c_uint64), _P, _I, _I, _I,
                         ctypes.c_uint, _I, _I, _I, _I, ctypes.c_long, _P, _P,
                         _P, _P],
-    'fused_mlp_fwd': [_P, _I, _I, ctypes.POINTER(ctypes.c_uint64),
+    'fused_mlp_fwd': [_P, _I, _I, _I, ctypes.POINTER(ctypes.c_uint64),
                       ctypes.POINTER(ctypes.c_int), _I, _I, _P, _P],
 }
 

@@ -19,6 +19,12 @@ from nerfds_torch.kernels import build
 
 Outputs = Tuple[torch.Tensor, ...]
 
+# The kernel's geometry (csrc/composite.cu): one warp a ray, this many rays
+# a block, and the samples a warp loads before it uses any (32 lanes x
+# UNROLL chunks).
+KERNEL_RAYS_PER_BLOCK = 4
+KERNEL_SAMPLE_CHUNK = 128
+
 
 def composite_reference(rgb, sigma, z_vals, dirs, sample_at_infinity=True,
                         eps: float = 1e-10) -> Outputs:

@@ -39,6 +39,12 @@ ACTIVATIONS = {'none': 0, 'identity': 0, 'relu': 1, 'sigmoid': 2,
 KERNEL_MAX_LAYERS = 17
 KERNEL_MAX_COLS = 256
 KERNEL_MAX_IN_DIM = 1024
+KERNEL_TILE_ROWS = 64   # rows a block owns (trunk_tile.cuh's TM)
+# The kernel's register-tile classes: a layer's columns are zero-padded to
+# the first of these that holds them; the last layer may also take
+# KERNEL_HEAD_WIDTH.
+KERNEL_WIDTHS = (64, 128, 256)
+KERNEL_HEAD_WIDTH = 16
 
 
 def _act_name(name: Optional[str]) -> str:
@@ -120,36 +126,63 @@ def _check_kernel_limits(x: torch.Tensor, layers: Layers):
         f'channels, columns {cols}')
 
 
+def kernel_width(cols: int, last: bool) -> int:
+  """The padded width of a layer of ``cols`` output columns in the kernel:
+  the first of ``KERNEL_WIDTHS`` that holds it, or ``KERNEL_HEAD_WIDTH`` for
+  a last layer that fits it."""
+  if last and cols <= KERNEL_HEAD_WIDTH:
+    return KERNEL_HEAD_WIDTH
+  return next(w for w in KERNEL_WIDTHS if cols <= w)
+
+
+def kernel_operands(layers: Layers, skips, hidden_activation,
+                    output_activation, has_output_layer: bool,
+                    compute_dtype) -> list:
+  """What the kernel reads of each layer: ``(W, b, cols, width, skip,
+  act)`` with W's and b's columns zero-padded to :func:`kernel_width` and
+  rounded to bf16 for bf16 compute; ``act`` is the kernel's code."""
+  rnd = _rounder(compute_dtype)
+  num_hidden = len(layers) - int(has_output_layer)
+  ops = []
+  for i, (w, b) in enumerate(layers):
+    cols = w.shape[1]
+    width = kernel_width(cols, i == len(layers) - 1)
+    act = hidden_activation if i < num_hidden else output_activation
+    ops.append((kernels.pad_columns(rnd(w.float()), width),
+                kernels.pad_columns(rnd(b.float()), width), cols, width,
+                int(i < num_hidden and i in skips),
+                ACTIVATIONS[_act_name(act)]))
+  return ops
+
+
 def _launch(x: torch.Tensor, layers: Layers, skips, hidden_activation,
             output_activation, has_output_layer: bool,
             compute_dtype) -> torch.Tensor:
   """Runs ``csrc/fused_mlp_fwd.cu`` on the current stream."""
   _check_kernel_limits(x, layers)
-  rnd = _rounder(compute_dtype)
   n = x.shape[0]
   out = torch.empty(n, layers[-1][0].shape[1], device=x.device,
                     dtype=torch.float32)
   if n == 0:
     return out
-  x = x.float().contiguous()
-  num_hidden = len(layers) - int(has_output_layer)
-  keep, ptrs, dims = [], [], []
-  for i, (w, b) in enumerate(layers):
-    w, b = rnd(w.float()).contiguous(), rnd(b.float()).contiguous()
-    keep += [w, b]
-    ptrs += [w.data_ptr(), b.data_ptr()]
-    act = hidden_activation if i < num_hidden else output_activation
-    dims += [w.shape[1], int(i < num_hidden and i in skips),
-             ACTIVATIONS[_act_name(act)]]
-  for t in keep:
-    if t.data_ptr() % 16:
-      raise ValueError('fused MLP operands must be 16-byte aligned')
+  # The kernel copies x in 16-byte pieces: aligned rows of a multiple of 4
+  # floats, zero past C_in; rounded here for bf16 compute.
+  c_in = x.shape[1]
+  x = _rounder(compute_dtype)(x.float())
+  if c_in % 4 or x.data_ptr() % 16 or not x.is_contiguous():
+    x = kernels.pad_columns(x, -(-c_in // 4) * 4)
+  ops = kernel_operands(layers, skips, hidden_activation, output_activation,
+                        has_output_layer, compute_dtype)
+  ptrs = [t.data_ptr() for op in ops for t in op[:2]]
+  dims = [v for op in ops for v in op[2:]]
+  if any(p % 16 for p in ptrs):
+    raise ValueError('fused MLP operands must be 16-byte aligned')
   ptr_array = (ctypes.c_uint64 * len(ptrs))(*ptrs)
   dim_array = (ctypes.c_int * len(dims))(*dims)
   lib = build.load_library()
   with torch.cuda.device(x.device):
     rc = lib.fused_mlp_fwd(
-        x.data_ptr(), n, x.shape[1], ptr_array, dim_array, len(layers),
+        x.data_ptr(), n, c_in, x.shape[1], ptr_array, dim_array, len(layers),
         int(compute_dtype == torch.bfloat16), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
   build.check(rc, 'fused_mlp_fwd')
@@ -167,7 +200,7 @@ def fused_mlp_forward(x: torch.Tensor, layers: Layers,
   tensors, the plain version for CPU tensors. ``layers``: ``[(W [in, out],
   b [out]), ...]``, the hidden layers and then, when ``has_output_layer``,
   the output layer. ``tile`` is the TPU kernel's row tile, kept for its
-  signature: the CUDA kernel's blocks take 32 rows."""
+  signature: the CUDA kernel's blocks take ``KERNEL_TILE_ROWS`` rows."""
   if tile < 1:
     raise ValueError(f'tile must be positive, got {tile}')
   for name in (hidden_activation, output_activation):

@@ -324,19 +324,12 @@ def _layer_operands(weights: TrunkWeights, spec: TrunkSpec):
     # Reverse weights: to h for i > 0; to feat at layer 0 and the skips.
     wr_h = wf_h.T.contiguous() if i > 0 else None
     wr_x = wf_h if i == 0 else wf_x
-    wr_x = _pad_columns(wr_x.T, KERNEL_NARROW_WIDTH) if wr_x is not None \
-        else None
+    wr_x = (kernels.pad_columns(wr_x.T, KERNEL_NARROW_WIDTH)
+            if wr_x is not None else None)
     layer = (wf_h, wf_x, wr_h, wr_x, b.contiguous())
     keep.extend(t for t in layer if t is not None)
     ptrs.extend(t.data_ptr() if t is not None else 0 for t in layer)
   return keep, ptrs
-
-
-def _pad_columns(x: torch.Tensor, cols: int) -> torch.Tensor:
-  """A contiguous copy of the 2-D ``x`` with zero columns up to ``cols``."""
-  out = x.new_zeros(x.shape[0], cols)
-  out[:, :x.shape[1]] = x
-  return out
 
 
 def _check_aligned(tensors):
@@ -362,7 +355,7 @@ def _launch(feat: torch.Tensor, weights: TrunkWeights, spec: TrunkSpec,
   ptrs = list(ptrs)
   bn = (tuple(t.contiguous() for t in weights.bottleneck)
         if weights.bottleneck is not None else (None, None))
-  head_w = _pad_columns(head_w, KERNEL_NARROW_WIDTH)
+  head_w = kernels.pad_columns(head_w, KERNEL_NARROW_WIDTH)
   for t in (head_w, head_b, *bn):
     ptrs.append(t.data_ptr() if t is not None else 0)
   _check_aligned([*keep, head_w, head_b, *bn])
@@ -415,10 +408,11 @@ def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
   # The kernel's 16-byte copies need rows of a multiple of 4 floats: feat
   # and Ḡ padded to D rounded up to 4, the head cotangent to 8 columns.
   ldx = -(-d // 4) * 4
-  feat_k, gbar_k = ((_pad_columns(x, ldx) if ldx != d else x.contiguous())
-                    for x in (feat, gbar))
-  head_cot = _pad_columns(torch.cat([sbar, nbar], -1) if spec.norm_dim > 0
-                          else sbar, KERNEL_MAX_HEAD)
+  feat_k, gbar_k = ((kernels.pad_columns(x, ldx) if ldx != d
+                     else x.contiguous()) for x in (feat, gbar))
+  head_cot = kernels.pad_columns(
+      torch.cat([sbar, nbar], -1) if spec.norm_dim > 0 else sbar,
+      KERNEL_MAX_HEAD)
   bbar = bbar.contiguous() if spec.has_bottleneck else None
   keep, ptrs = operands or _layer_operands(weights, spec)
   ptrs = list(ptrs)

@@ -51,6 +51,33 @@ def test_composite_kernel_matches_plain_on_card(cuda, sample_at_infinity):
     torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
 
 
+# Ray counts at the edges of K2's blocks (one warp a ray): one ray, a block
+# edge either side, a training batch and a ragged render-sized count; sample
+# counts of one, of synthetic_smoke's coarse level, of nerf_ds's two levels
+# and one past a whole pass.
+K2_RAYS = (1, tcomposite.KERNEL_RAYS_PER_BLOCK - 1,
+           tcomposite.KERNEL_RAYS_PER_BLOCK + 1, 512, 4099)
+K2_SAMPLES = (1, 12, 64, tcomposite.KERNEL_SAMPLE_CHUNK,
+              tcomposite.KERNEL_SAMPLE_CHUNK + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sample_at_infinity', [True, False])
+@pytest.mark.parametrize('num_samples', K2_SAMPLES)
+def test_composite_kernel_at_block_and_chunk_edges(cuda, num_samples,
+                                                   sample_at_infinity):
+  for num_rays in K2_RAYS:
+    args = [t(a).to(cuda) for a in composite_inputs(
+        num_rays=num_rays, num_samples=num_samples, seed=num_rays)]
+    got = tcomposite.composite_forward(*args, sample_at_infinity)
+    want = tcomposite.composite_reference(*args, sample_at_infinity)
+    # Tolerance: float32; the kernel's warp scan and sums associate
+    # differently from torch.cumprod / torch.sum.
+    for g, w in zip(got, want):
+      torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5,
+                                 msg=f'R={num_rays}')
+
+
 def nerf_ds_trunk(cuda, gen):
   """The nerf_ds NeRF trunk (8x256, skip at 4, 52 inputs, σ + normal head,
   bottleneck) on the card."""
@@ -167,3 +194,75 @@ def test_fused_mlp_kernel_matches_plain_on_card(cuda, compute_dtype):
       scale = want.abs().max().item()
       torch.testing.assert_close(got, want, rtol=2 ** -6,
                                  atol=2 ** -6 * scale)
+
+
+def random_mlp(cuda, seed, *args, **kwargs):
+  """An MLP on the card with glorot weights and biases drawn from
+  U(-0.1, 0.1), so that no bias is 0."""
+  gen = torch.Generator().manual_seed(seed)
+  mlp = MLP(*args, generator=gen, **kwargs)
+  with torch.no_grad():
+    for name, p in mlp.named_parameters():
+      if name.endswith('bias'):
+        p.uniform_(-0.1, 0.1, generator=gen)
+  return mlp.to(cuda)
+
+
+def check_fused_mlp(cuda, mlp, n, seed, compute_dtype=None):
+  x = (torch.rand(n, mlp.in_dim, generator=torch.Generator().manual_seed(
+      seed)) * 2 - 1).to(cuda)
+  before = kernels.launch_counts['fused_mlp_fwd']
+  got = tfm.fused_apply(mlp, None, x, compute_dtype=compute_dtype)
+  assert kernels.launch_counts['fused_mlp_fwd'] == before + 1
+  layers, has_out = tfm.mlp_params_to_layers(mlp, None)
+  with torch.no_grad():
+    want = tfm.fused_mlp_reference(
+        x, layers, mlp.skips, mlp.hidden_activation, mlp.output_activation,
+        has_out, compute_dtype=compute_dtype)
+  if compute_dtype is None:
+    # float32 sums in another order than cuBLAS.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+  else:
+    # As test_fused_mlp_kernel_matches_plain_on_card: 2 to 4 bf16 ulps.
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=2 ** -6, atol=2 ** -6 * scale)
+
+
+# One stack of each hidden width class of K3 (nerf_ds's NeRF trunk, SE(3)
+# trunk and hyper sheet, with their input widths), at row counts at the
+# edges of the kernel's 64-row tile.
+K3_STACKS = {
+    256: dict(in_dim=52, depth=8, width=256, skips=(4,)),
+    128: dict(in_dim=33, depth=6, width=128, skips=(4,)),
+    64: dict(in_dim=45, depth=6, width=64, skips=(4,), output_channels=2),
+}
+K3_TILE_EDGES = (1, tfm.KERNEL_TILE_ROWS - 1, tfm.KERNEL_TILE_ROWS + 1,
+                 64 * tfm.KERNEL_TILE_ROWS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', K3_TILE_EDGES)
+@pytest.mark.parametrize('width', list(K3_STACKS))
+def test_fused_mlp_kernel_at_tile_edges(cuda, width, n):
+  check_fused_mlp(cuda, random_mlp(cuda, width, **K3_STACKS[width]), n,
+                  seed=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('skips', [(), (1,)])
+def test_fused_mlp_kernel_widest_input(cuda, skips):
+  # 1024 input channels stream through the kernel's input ring.
+  mlp = random_mlp(cuda, 5, 1024, 2, 256, skips, output_channels=3)
+  check_fused_mlp(cuda, mlp, 4099, seed=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [None, torch.bfloat16])
+@pytest.mark.parametrize('act', ['relu', 'sigmoid', 'softplus', 'tanh',
+                                 'none'])
+def test_fused_mlp_kernel_each_activation(cuda, act, compute_dtype):
+  # Width 40 pads to 64 columns, where sigmoid and softplus put act(0) != 0;
+  # skips at layer 0 and 2 re-read the 45 input channels.
+  mlp = random_mlp(cuda, 7, 45, 3, 40, (0, 2), act, output_channels=3,
+                   output_activation=None if act == 'none' else act)
+  check_fused_mlp(cuda, mlp, 4099, seed=8, compute_dtype=compute_dtype)

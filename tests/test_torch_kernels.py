@@ -424,3 +424,100 @@ def test_fused_mlp_empty_input_and_checks():
   wide = [(torch.zeros(52, 512), torch.zeros(512))]
   with pytest.raises(ValueError, match='256 output columns'):
     tfm._check_kernel_limits(x, wide)
+
+
+def test_mlp_kernel_constants_match_the_cuda_source():
+  """K3's limits and tile rows in the wrapper are those compiled into
+  csrc/fused_mlp_fwd.cu and its engine; every width class's ring chunks
+  fit a stage and divide every hidden width class (so a product reads no
+  tile row that no layer wrote); whatever the input width (x streams
+  through the input ring), a block of the 256-wide instantiation fits the
+  H100's 232,448 bytes, and two blocks of the narrow one fit an SM's
+  233,472 (1 KB of it reserved a block); each column count takes the
+  narrowest class that holds it."""
+  tile = cuda_constants('trunk_tile.cuh')
+  k3 = cuda_constants('fused_mlp_fwd.cu')
+  assert k3['MAXL'] == tfm.KERNEL_MAX_LAYERS
+  assert k3['WMAX'] == tfm.KERNEL_MAX_COLS == max(tfm.KERNEL_WIDTHS)
+  assert k3['WMAX'] == tile['WIDTH'] and k3['NARROW'] in tfm.KERNEL_WIDTHS
+  assert k3['CIN_MAX'] == tfm.KERNEL_MAX_IN_DIM
+  assert k3['HEADW'] == tfm.KERNEL_HEAD_WIDTH
+  assert tile['TM'] == tfm.KERNEL_TILE_ROWS
+  chunk, nt, tm = tile['KC'] * tile['WIDTH'], tile['NT'], tile['TM']
+  for w in (*tfm.KERNEL_WIDTHS, tfm.KERNEL_HEAD_WIDTH):
+    kc = min(k3['KCMAX'], chunk // w)
+    kcx = min(kc, k3['KCX'])
+    assert kc * w <= chunk and all(h % kc == 0 for h in tfm.KERNEL_WIDTHS)
+    # The staging loops give each thread whole 16-byte pieces, or (a 16-wide
+    # weight chunk of x's rows) fewer pieces than threads, which the loop
+    # guards.
+    for rows in (kc, kcx):
+      pieces = rows * w // 4
+      assert pieces % nt == 0 or (w == tfm.KERNEL_HEAD_WIDTH and pieces < nt)
+    assert (tm * kcx // 4) % nt == 0
+  lda = tm + 4
+  rings = tile['STAGES'] * (chunk + tm * (k3['KCX'] + 4))
+  wide = 4 * (tile['WIDTH'] * lda + rings)
+  narrow = 4 * (k3['NARROW'] * lda + rings)
+  assert (wide, narrow) == (146_432, 111_616)
+  assert wide <= 232_448 and 2 * (narrow + 1024) <= 233_472
+  for cols in range(1, tfm.KERNEL_MAX_COLS + 1):
+    hidden = tfm.kernel_width(cols, last=False)
+    assert hidden == min(w for w in tfm.KERNEL_WIDTHS if w >= cols)
+    assert tfm.kernel_width(cols, last=True) == (
+        tfm.KERNEL_HEAD_WIDTH if cols <= tfm.KERNEL_HEAD_WIDTH else hidden)
+
+
+def test_composite_kernel_constants_match_the_cuda_source():
+  """K2's rays a block and samples a pass in the wrapper are those
+  compiled into csrc/composite.cu; it keeps nothing in shared memory, and
+  its blocks spread a training batch (512 rays) and a render chunk (4096)
+  over the H100's 132 SMs."""
+  k2 = cuda_constants('composite.cu')
+  assert k2['WARPS'] == tcomposite.KERNEL_RAYS_PER_BLOCK
+  assert k2['LANES'] * k2['UNROLL'] == tcomposite.KERNEL_SAMPLE_CHUNK
+  source = (pathlib.Path(tcomposite.__file__).parent / 'csrc' /
+            'composite.cu').read_text()
+  assert '__shared__' not in source
+  for rays in (512, 4096):
+    assert -(-rays // tcomposite.KERNEL_RAYS_PER_BLOCK) >= 0.95 * 132
+
+
+# The kernel's activation codes back to names.
+ACT_NAMES = {code: name for name, code in tfm.ACTIVATIONS.items()}
+
+
+@pytest.mark.parametrize('case', list(K3_CASES))
+def test_fused_mlp_kernel_operands_give_the_plain_result(case):
+  """The kernel's arithmetic, emulated in torch on the operands the
+  wrapper builds (each product reads the previous layer's true width of
+  the padded activation, then x at a skip; bias; activation), gives the
+  plain version's result: the padding, widths, skip offsets and activation
+  codes handed to the kernel are right."""
+  c = dict(K3_CASES[case])
+  in_dim, n = c.pop('in_dim', 52), c.pop('n', 300)
+  gen = torch.Generator().manual_seed(11)
+  mlp = MLP(in_dim, c['depth'], c['width'], c['skips'],
+            c.get('hidden_act', 'relu'), c['out_ch'], c['out_act'],
+            generator=gen)
+  with torch.no_grad():
+    for name, p in mlp.named_parameters():
+      if name.endswith('bias'):
+        p.uniform_(-0.1, 0.1, generator=gen)
+  x = torch.rand(n, in_dim, generator=gen) * 2 - 1
+  layers, has_out = tfm.mlp_params_to_layers(mlp, None)
+  ops = tfm.kernel_operands(layers, mlp.skips, mlp.hidden_activation,
+                            mlp.output_activation, has_out, torch.float32)
+  h, k = x, in_dim
+  for i, (w, b, cols, width, skip, code) in enumerate(ops):
+    assert width == tfm.kernel_width(cols, i == len(ops) - 1)
+    assert w.shape[1] == b.shape[0] == width and w.is_contiguous()
+    assert not w[:, cols:].any() and not b[cols:].any()
+    acc = h[:, :k] @ w[:k]
+    if skip:
+      acc = acc + x @ w[k:]
+    h, k = tfm.apply_activation(acc + b, ACT_NAMES[code]), cols
+  want = tfm.fused_mlp_reference(x, layers, mlp.skips, mlp.hidden_activation,
+                                 mlp.output_activation, has_out)
+  # Tolerance: float32; a skip layer's two products are summed apart here.
+  torch.testing.assert_close(h[:, :k], want, rtol=1e-5, atol=1e-5)
