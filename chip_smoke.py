@@ -32,12 +32,22 @@
    on the kernel and plain paths; K3 through ``fused_apply`` on every MLP
    of the restored model, fed what each received in one render chunk, each
    timed as a share of its bound.
-9. Prints one JSON line describing every kernel ("launches": the render's
+9. The captured-scene path at full width, through the CLIs: exports a
+   two-camera vrig capture (4 frames a camera, 480x480, 192 ground-truth
+   samples) on the card, writes its split cameras, trains ``nerf_ds()`` on
+   it for 24 steps at batch 512 (K1f, K1b and K2 twice a step), runs the
+   eval CLI on its val, train and test splits (K2 only), renders a val
+   view and a novel camera path (K2 only), and scores the rendered val
+   frame with ``metrics_pipeline`` against the eval CLI's PSNR; times the
+   PNG decode of an exported frame and of a Paeth-filtered panel.
+10. Prints one JSON line describing every kernel ("launches": the render's
    count for K1f and K2, the training run's for K1b, the eval path's for
-   K3; "launches_render" and "launches_train" for all four), a line of the
-   training numbers, a line of the eval numbers, the card's line, and as
-   the last line ``{"ok": true, "device": {...}}``. K2's and K3's entries
-   hold their times at every timed shape under "shapes".
+   K3; "launches_render", "launches_train" and "launches_capture" for all
+   four), a line of the training numbers, a line of the eval numbers, a
+   line of the capture numbers, the card's line, and as the last line
+   ``{"ok": true, "device": {...}}``. K2's and K3's entries hold their
+   times at every timed shape under "shapes"; K3's σ/normal head there
+   also holds its library call's time (``F.linear``).
 
 TF32 is switched off for matmuls and convolutions, so every plain version
 runs in full float32 like the kernels. Exits nonzero at the first failure.
@@ -74,6 +84,11 @@ K2_SHAPES = ((4096, 64), (4096, 128), (8192, 64), (8192, 128), (512, 64),
 # The eval phase: the train CLI's first run and the step its second resumes
 # to.
 EVAL_STEPS = (24, 30)
+# The capture phase: frames a camera of the exported vrig capture, their
+# width and height, and the ground truth's samples a ray.
+CAPTURE_FRAMES = 4
+CAPTURE_SIZE = 480
+CAPTURE_GT_SAMPLES = 192
 
 
 def card_line() -> str:
@@ -347,8 +362,21 @@ def phase_fused_mlp(torch, device):
               x, layers, mlp.skips, mlp.hidden_activation,
               mlp.output_activation, has_out), 5, warmup=1)
           tflop, bound_ms, bound_by = mlp_forward_bound(layers, n)
+          # One PyTorch call computes a single linear layer without an
+          # activation (the σ/normal head): F.linear.
+          library_ms = None
+          if len(layers) == 1 and mlp.output_activation is None:
+            w_t = layers[0][0].t().contiguous()
+            b = layers[0][1]
+            library_ms = time_ms(
+                torch, lambda: torch.nn.functional.linear(x, w_t, b), 5,
+                warmup=1)
+            compare(torch, 'out vs F.linear', got,
+                    torch.nn.functional.linear(x, w_t, b), 1e-5, 1e-5)
+            print(f'  library call F.linear: {library_ms:.3f} ms')
           shapes[name] = dict(n=n, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=library_ms)
           if name == 'nerf.coarse.trunk':
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by)
@@ -862,7 +890,7 @@ def phase_eval(torch, device):
             'model.sigma_gradient_mode=fused', '--batch_size',
             str(TRAIN_BATCH), '--set', f'train.save_every={first // 2}']
     start = time.perf_counter()
-    state, metrics = train_cli.main([*args, '--max_steps', str(first)])
+    state, metrics, _ = train_cli.main([*args, '--max_steps', str(first)])
     ckpt = CheckpointManager(exp / 'checkpoints')
     print(f'  train CLI to step {state.step}: '
           f'{time.perf_counter() - start:.1f} s, checkpoints '
@@ -871,7 +899,7 @@ def phase_eval(torch, device):
       raise AssertionError(f'step {state.step}, checkpoints '
                            f'{ckpt.all_steps()}')
     kernels.reset_launch_counts()
-    state, metrics = train_cli.main([*args, '--max_steps', str(last)])
+    state, metrics, _ = train_cli.main([*args, '--max_steps', str(last)])
     resumed = dict(kernels.launch_counts)
     print(f'  train CLI resumed to step {state.step}: launches {resumed}, '
           f'checkpoints {ckpt.all_steps()}')
@@ -992,6 +1020,157 @@ def phase_eval(torch, device):
   return out
 
 
+def phase_capture(torch, device):
+  """The captured-scene path at full width, through the CLIs a user runs:
+  export a two-camera vrig capture on the card, write its split cameras,
+  train nerf_ds on it (the Nerfies loader), evaluate it (val, train and
+  test splits), render the val cameras and a novel camera path, and score
+  the rendered val frame offline. The launch counts are set to 0 before
+  each CLI and read after it; their sums are the capture path's."""
+  import math
+  import pathlib
+  import tempfile
+  import numpy as np
+  from nerfds_torch import eval as eval_cli
+  from nerfds_torch import export_synthetic, generate_test_cameras
+  from nerfds_torch import image_utils, kernels, metrics_pipeline
+  from nerfds_torch import render as render_cli
+  from nerfds_torch import train as train_cli
+  frames, size = CAPTURE_FRAMES, CAPTURE_SIZE
+  print(f'== capture: vrig export ({frames} frames a camera, {size}x{size}),'
+        f' train CLI {TRAIN_STEPS} steps, eval CLI, render CLI, '
+        'metrics_pipeline; nerf_ds() at full width')
+  # The CLIs' chunk: 8192 rays, a 480x480 view in 29 chunks.
+  chunks_a_view = math.ceil(size * size / 8192)
+  total = dict.fromkeys(kernels.launch_counts, 0)
+  out = {}
+
+  def run(fn, argv):
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    result = fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = dict(kernels.launch_counts)
+    for k, v in launches.items():
+      total[k] += v
+    return result, seconds, launches
+
+  with tempfile.TemporaryDirectory() as tmp:
+    data, exp = pathlib.Path(tmp) / 'vrig', pathlib.Path(tmp) / 'exp'
+    (_, export_s), _, launches = run(export_synthetic.main, [
+        '--out_dir', str(data), '--frames', str(frames), '--image_size',
+        str(size), '--gt_samples', str(CAPTURE_GT_SAMPLES),
+        '--camera_path_frames', str(frames)])
+    check_launches('export', launches)
+    out['export_s_per_frame'] = export_s / (2 * frames)
+    generate_test_cameras.main(['--data_dir', str(data), '--mode', 'split'])
+    if len(list((data / 'vrig_camera').glob('*.json'))) != frames:
+      raise AssertionError('generate_test_cameras --mode split')
+    frame = data / 'rgb' / '1x' / 'left_0000.png'
+    out['decode_ms_export_frame'] = 1e3 * min(
+        time_host(lambda: image_utils.load_image(frame)) for _ in range(3))
+    # A panel of three 480x480 frames written by the JAX package's eval
+    # script, its rows filtered by Sub, Up and Paeth.
+    panel = (pathlib.Path(__file__).resolve().parent / 'artifacts' / 'vrig_run'
+             / 'panels' / 'eval_val_right_0000.png')
+    out['decode_ms_panel_per_480'] = 1e3 * min(
+        time_host(lambda: image_utils.load_image(panel))
+        for _ in range(3)) / 3
+    print(f'  export: {export_s:.2f} s, {out["export_s_per_frame"]:.3f} s a '
+          f'frame; PNG decode of an exported frame '
+          f'{out["decode_ms_export_frame"]:.1f} ms, of a Paeth-filtered '
+          f'panel {out["decode_ms_panel_per_480"]:.1f} ms a 480x480 frame')
+
+    (state, metrics, store), out['train_cli_s'], launches = run(
+        train_cli.main, [
+            '--preset', 'nerf_ds', '--datasource', 'nerfies', '--data_dir',
+            str(data), '--exp_dir', str(exp), '--batch_size',
+            str(TRAIN_BATCH), '--max_steps', str(TRAIN_STEPS), '--set',
+            'model.use_pallas_compositing=True', '--set',
+            'model.sigma_gradient_mode=fused', '--set',
+            f'train.print_every={TRAIN_STEPS // 2}'])
+    # K2 also runs twice a chunk in the closing eval of the 4 val views.
+    steps = 2 * TRAIN_STEPS
+    check_launches('train CLI', launches, fused_trunk_fwd=steps,
+                  fused_trunk_bwd=steps,
+                  composite_fwd=steps + 2 * frames * chunks_a_view)
+    if state.step != TRAIN_STEPS or not all(
+        np.isfinite(v) for v in metrics.values()):
+      raise AssertionError(f'train CLI: step {state.step}, {metrics}')
+    out.update(store_rays=store.num_rays, store_nbytes=store.nbytes)
+    print(f'  the train CLI\'s ray store: {store.num_rays} rays, '
+          f'{store.nbytes} bytes on {store.rgb.device}')
+    if store.num_rays != frames * size * size:
+      raise AssertionError(f'store of {store.num_rays} rays')
+    del store
+    last = json.loads((exp / 'summaries' / 'metrics.jsonl').read_text(
+        ).splitlines()[-1])
+    out['train_rays_per_s'] = TRAIN_BATCH * last['time/steps_per_sec']
+    out['train_val_psnr'] = metrics['psnr']
+    print(f'  train CLI: {out["train_cli_s"]:.1f} s, steps '
+          f'{TRAIN_STEPS // 2 + 1}-{TRAIN_STEPS} at '
+          f'{out["train_rays_per_s"]:.0f} rays/s; closing val metrics '
+          f'{metrics}')
+
+    report, out['eval_cli_s'], launches = run(eval_cli.main, [
+        '--exp_dir', str(exp), '--eval_once', '--num_val_eval', '1',
+        '--num_train_eval', '1', '--num_test_eval', '1', '--save_images'])
+    check_launches('eval CLI', launches, composite_fwd=2 * 3 * chunks_a_view)
+    for split in ('val', 'train'):
+      print(f'  eval CLI {split}: {report[split]["per_item"]}')
+      if not all(np.isfinite(v) for m in report[split]['per_item'].values()
+                 for v in m.values()):
+        raise AssertionError(f'eval CLI {split}: {report[split]}')
+    print(f'  eval CLI test: {report["test"]}')
+    if not [m['finite'] for m in report['test']['per_item'].values()] == [
+        True]:
+      raise AssertionError(f'eval CLI test split: {report["test"]}')
+    val_psnr = report['val']['per_item']['right_0000']['psnr']
+
+    for name, path in (('val', 'val'), ('novel', 'camera-paths/orbit-novel')):
+      (render_dir, names), seconds, launches = run(render_cli.main, [
+          '--exp_dir', str(exp), '--camera_path', path, '--interval',
+          str(frames), '--out', str(exp / f'render_{name}')])
+      check_launches(f'render CLI ({path})', launches,
+                    composite_fwd=2 * chunks_a_view)
+      written = sorted(p.name for p in (render_dir / 'frames').glob('*.png'))
+      print(f'  render CLI ({path}): {seconds:.1f} s, frames {written}')
+      if written != [f'{n}.png' for n in names] or len(names) != 1:
+        raise AssertionError(f'render CLI {path}: frames {written}')
+      out[f'render_{name}_s_per_frame'] = seconds / len(names)
+
+    means = metrics_pipeline.main([
+        '--pred_dir', str(exp / 'render_val' / 'frames'), '--gt_dir',
+        str(data / 'rgb' / '1x'), '--mask_dir',
+        str(data / 'resized_mask' / '1x')])
+    out.update(metrics_psnr=means['psnr'], eval_cli_val_psnr=val_psnr,
+               metrics_masked_psnr=means.get('masked_psnr'),
+               metrics_ms_ssim=means['ms_ssim'])
+    print(f'  metrics_pipeline psnr {means["psnr"]:.4f} dB, eval CLI '
+          f'{val_psnr:.4f} dB (right_0000)')
+    if not abs(means['psnr'] - val_psnr) <= 0.05:
+      raise AssertionError('metrics_pipeline and the eval CLI differ by '
+                           'more than 0.05 dB')
+  return total, out
+
+
+def check_launches(name, launches, **want):
+  """``launches`` must hold the counts in ``want``, and 0 for every other
+  kernel."""
+  want = {**dict.fromkeys(launches, 0), **want}
+  print(f'  {name} launches: {launches}')
+  if launches != want:
+    raise AssertionError(f'{name} launches {launches}, want {want}')
+
+
+def time_host(fn) -> float:
+  """Seconds of one call of ``fn`` on the host's clock."""
+  start = time.perf_counter()
+  fn()
+  return time.perf_counter() - start
+
+
 def host_syncs(torch, fn):
   """Calls ``fn`` once under CUDA's sync debug mode and counts the calls
   that made the host wait for the card, by the line of Python that made
@@ -1077,12 +1256,16 @@ def main() -> int:
   results[2]['launches'] = train_launches['fused_trunk_bwd']
   evaluation = phase_eval(torch, device)
   results[3]['launches'] = evaluation['k3_launches']
+  capture_launches, capture = phase_capture(torch, device)
+  for r in results:
+    r['launches_capture'] = capture_launches[r['name']]
   print(json.dumps({'kernels': results}))
   print(f'training at batch {TRAIN_BATCH}, steady steps: ' + '; '.join(
       f'{name} path {t["rays_per_s"]} rays/s, {t["step_ms"]} ms a step, peak '
       f'{t["peak_gib"]} GiB, {t["host_syncs"]} host syncs a step'
       for name, t in train.items()))
   print('eval: ' + json.dumps(evaluation))
+  print('capture: ' + json.dumps(capture))
   print(f'card: {card_line()}')
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

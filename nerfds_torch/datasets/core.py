@@ -9,9 +9,10 @@
 * :class:`DataSource`: the per-item API, and `build_ray_store` over items.
 
 Masks are inverted at load by the concrete sources (moving part = 1) and
-metadata is broadcast per pixel, as in the JAX package. The host-side
-sampler for stores larger than the device (``HostRayIterator``) is not
-ported yet.
+metadata is broadcast per pixel, as in the JAX package. Not ported yet
+(ROADMAP.md, queue 1): ``HostRayIterator``, the host-side sampler for
+stores larger than the device, and the per-process share of
+``build_ray_store(process_local=True)``.
 """
 from __future__ import annotations
 
@@ -44,6 +45,14 @@ class RayStore:
   def num_rays(self) -> int:
     return self.origins.shape[0]
 
+  @property
+  def nbytes(self) -> int:
+    def leaves(d):
+      for v in d.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    return sum(int(x.nbytes) for x in leaves(self.as_dict()))
+
   def as_dict(self) -> Dict[str, Any]:
     return {
         'origins': self.origins,
@@ -63,6 +72,9 @@ class RayStore:
     return RayStore.from_dict(_tree_map(
         lambda x: torch.as_tensor(np.ascontiguousarray(x)).to(device),
         self.as_dict()))
+
+  def take(self, idx) -> 'RayStore':
+    return RayStore.from_dict(_tree_map(lambda x: x[idx], self.as_dict()))
 
 
 def sample_batch(store: RayStore, generator: Optional[torch.Generator],
@@ -91,6 +103,10 @@ class DataSource(abc.ABC):
     self.use_warp_id = use_warp_id
     self.use_time = use_time
     self.rng = np.random.RandomState(random_seed)
+
+  @property
+  def all_ids(self) -> List[str]:
+    return sorted(self.train_ids + self.val_ids)
 
   # -- per-item API ---------------------------------------------------------
 
@@ -204,3 +220,7 @@ class DataSource(abc.ABC):
         mask=flatten('mask'),
         metadata=metadata,
     )
+
+  def camera_rays_for_item(self, item_id: str) -> Dict[str, Any]:
+    """Full-image ray dict for rendering one held-out view."""
+    return self.load_item(item_id)

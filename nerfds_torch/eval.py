@@ -110,6 +110,7 @@ def main(argv: Optional[Sequence[str]] = None):
         return None
       time.sleep(args.poll_secs)
       continue
+    start = time.time()
     state, _ = ckpt.restore(template, step)
     model.load_state_dict(state.params)
     extra_params = eval_extra_params(model_cfg, train_cfg, state.step)
@@ -126,7 +127,7 @@ def main(argv: Optional[Sequence[str]] = None):
         out = render({k: item[k] for k in ('origins', 'directions', 'mask',
                                            'metadata')}, extra_params)
         per_item[item_id] = metrics_lib.compute_all(out['rgb'], item['rgb'],
-                                                    lpips)
+                                                    lpips, device=device)
         if args.save_images:
           viz.save_png(
               _panel_dir(exp_dir, step, split) / f'{item_id}.png',
@@ -167,7 +168,7 @@ def main(argv: Optional[Sequence[str]] = None):
           'metadata': {k: int(v.flat[0]) for k, v in sampled_meta.items()},
           'per_item': per_item}
     (metrics_dir / f'{step}.json').write_text(json.dumps(report, indent=2))
-    print(f'step {step}: ' + json.dumps(
+    print(f'step {step} ({time.time() - start:.1f} s): ' + json.dumps(
         {s: report[s].get('mean', report[s].get('metadata'))
          for s in report}), flush=True)
     evaluated.add(step)

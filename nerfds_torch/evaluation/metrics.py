@@ -5,7 +5,8 @@ PyTorch, and LPIPS when the ``lpips`` package imports.
 SSIM is the Wang et al. 2003 formulation with an 11×11 Gaussian window
 (σ = 1.5) applied as two separable ``F.conv2d`` passes with valid padding,
 in full float32 (TF32 off). Images are ``[H, W, C]`` arrays or tensors;
-numpy inputs are computed on the CPU.
+tensors are computed where they lie, numpy inputs on the CPU unless
+``compute_all`` is given a ``device``.
 """
 from __future__ import annotations
 
@@ -123,7 +124,7 @@ def compute_msssim(a, b, max_val: float = 1.0) -> torch.Tensor:
       mcs.append(torch.clamp(cs, min=0.0))
       a = _downsample2x(a)
       b = _downsample2x(b)
-  result = torch.tensor(1.0)
+  result = torch.ones((), device=a.device)
   for i, cs in enumerate(mcs):
     result = result * cs ** float(weights[i])
   return result * torch.clamp(ssim_val, min=0.0) ** float(weights[-1])
@@ -150,10 +151,13 @@ class LpipsMetric:
 
 
 def compute_all(pred, target,
-                lpips_metric: Optional[LpipsMetric] = None
-                ) -> Dict[str, float]:
-  """The reference's metric set over one image pair."""
+                lpips_metric: Optional[LpipsMetric] = None,
+                device=None) -> Dict[str, float]:
+  """The reference's metric set over one image pair, on ``device`` where
+  one is given (LPIPS takes the pair as it came)."""
   pred_t, target_t = _tensor(pred), _tensor(target)
+  if device is not None:
+    pred_t, target_t = pred_t.to(device), target_t.to(device)
   out = {
       'mse': float(compute_mse(pred_t, target_t)),
       'psnr': float(compute_psnr(pred_t, target_t)),

@@ -3,6 +3,9 @@
   python -m nerfds_torch.train --preset synthetic_smoke --exp_dir /tmp/exp
   python -m nerfds_torch.train --preset nerf_ds --datasource synthetic \\
       --exp_dir /tmp/exp/nerf_ds --max_steps 1000 --device cuda
+  python -m nerfds_torch.train --preset nerf_ds --data_dir /data/vrig \\
+      --exp_dir /tmp/exp/vrig --batch_size 1024 --max_steps 2000 \\
+      --scale_schedules
 
 Configs are the named preset, then a ``--config_json`` file of {model:
 {...}, train: {...}} overrides, then ``--set model.x=...``/``train.x=...``
@@ -10,7 +13,8 @@ dotted overrides. Writes ``experiment.json`` (and, through the trainer,
 ``model_config.json``, ``train_config.json``, ``checkpoints/`` and
 ``summaries/``) into ``--exp_dir``; resumes from its latest checkpoint;
 ends with ``eval_psnr`` on up to 10 strided val views, written to
-``final_metrics.json``.
+``final_metrics.json``. ``main`` returns the final state, those metrics
+and the ray store it trained on.
 
 Single-device training is the only ported mode: ``--no_mesh`` is
 accepted and the trainer never builds a mesh. ``--sampling host`` raises
@@ -23,6 +27,7 @@ import argparse
 import ast
 import dataclasses
 import json
+import time
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -152,6 +157,9 @@ def main(argv: Optional[Sequence[str]] = None):
   trainer = Trainer.from_experiment(model_cfg, train_cfg, datasource,
                                     exp_dir=exp_dir, use_mesh=False,
                                     sampling=args.sampling, device=device)
+  store = trainer.build_store()
+  print(f'ray store: {store.num_rays} rays, {store.nbytes / 2**20:.1f} MiB '
+        f'on {device}', flush=True)
 
   def log_fn(step, data):
     stats = data['stats']
@@ -161,14 +169,19 @@ def main(argv: Optional[Sequence[str]] = None):
           f"psnr={stats[level]['metric/psnr']:.2f} "
           f"steps/s={t.get('steps_per_sec', 0):.2f}", flush=True)
 
+  start = time.time()
   state = trainer.train(log_fn=log_fn)
+  print(f'trained to step {state.step} in {time.time() - start:.1f} s',
+        flush=True)
   # Up to 10 strided val views: full-split metrics are the eval CLI's job.
   val_ids = datasource.val_ids or datasource.train_ids[:1]
   stride = max(1, len(val_ids) // 10)
+  start = time.time()
   metrics = trainer.eval_psnr(state, item_ids=val_ids[::stride][:10])
-  print('final val metrics:', json.dumps(metrics), flush=True)
+  print(f'final val metrics ({time.time() - start:.1f} s):',
+        json.dumps(metrics), flush=True)
   (exp_dir / 'final_metrics.json').write_text(json.dumps(metrics))
-  return state, metrics
+  return state, metrics, store
 
 
 if __name__ == '__main__':

@@ -261,7 +261,8 @@ class Trainer:
       out = render_image(
           model, rays, extra, chunk=chunk, keys=('rgb',),
           generator=torch.Generator(device=model.device).manual_seed(0))
-      m = metrics_lib.compute_all(out['rgb'], item['rgb'])
+      m = metrics_lib.compute_all(out['rgb'], item['rgb'],
+                                  device=model.device)
       if masked:
         fg = np.asarray(item['mask'])[..., 0] > 0.5
         if fg.any():

@@ -86,15 +86,20 @@ def save_video(path, frames, fps: int = 15):
 
 
 def save_png(path, image) -> None:
-  """Writes an [H, W, 3] (or [H, W]) image as an 8-bit PNG: floats are
-  taken as [0, 1] and clipped, uint8 as they are."""
+  """Writes an [H, W] or [H, W, C] image (gray, gray + alpha, RGB or RGBA)
+  as a PNG with unfiltered rows: uint16 as 16-bit samples, uint8 as 8-bit,
+  floats taken as [0, 1], clipped and truncated to 8 bits."""
   img = np.asarray(image)
-  if img.dtype != np.uint8:
-    img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+  if img.dtype == np.uint16:
+    depth, img = 16, img.astype('>u2')
+  else:
+    depth = 8
+    if img.dtype != np.uint8:
+      img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
   if img.ndim == 2:
     img = img[..., None]
   h, w, c = img.shape
-  color_type = {1: 0, 3: 2, 4: 6}[c]
+  color_type = {1: 0, 2: 4, 3: 2, 4: 6}[c]
   raw = b''.join(b'\x00' + img[y].tobytes() for y in range(h))
 
   def chunk(tag: bytes, data: bytes) -> bytes:
@@ -103,5 +108,6 @@ def save_png(path, image) -> None:
 
   Path(path).write_bytes(
       b'\x89PNG\r\n\x1a\n'
-      + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, color_type, 0, 0, 0))
+      + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, depth, color_type, 0, 0,
+                                   0))
       + chunk(b'IDAT', zlib.compress(raw)) + chunk(b'IEND', b''))

@@ -333,7 +333,7 @@ def test_train_and_eval_clis_on_cpu(tmp_path):
           str(exp), '--batch_size', '32', '--set',
           'model.num_coarse_samples=4', '--set', 'model.num_fine_samples=4',
           '--set', 'train.save_every=2', '--set', 'train.print_every=1']
-  state, metrics = train_cli.main([*args, '--max_steps', '3'])
+  state, metrics, _ = train_cli.main([*args, '--max_steps', '3'])
   assert state.step == 3
   assert CheckpointManager(exp / 'checkpoints').all_steps() == [2, 3]
   assert json.loads((exp / 'final_metrics.json').read_text()) == metrics
@@ -343,7 +343,7 @@ def test_train_and_eval_clis_on_cpu(tmp_path):
   assert json.loads((exp / 'train_config.json').read_text())[
       'save_every'] == 2  # the --set override
   # Resumes at 3: only step 4 runs.
-  state, _ = train_cli.main([*args, '--max_steps', '4'])
+  state, _, _ = train_cli.main([*args, '--max_steps', '4'])
   lines = (exp / 'summaries' / 'metrics.jsonl').read_text().splitlines()
   assert [json.loads(x)['step'] for x in lines] == [1, 2, 3, 4]
   report = eval_cli.main(['--exp_dir', str(exp), '--device', 'cpu',
@@ -363,18 +363,36 @@ def test_train_and_eval_clis_on_cpu(tmp_path):
     train_cli.main([*args, '--max_steps', '5', '--sampling', 'host'])
 
 
-def test_parse_value_and_unported_sources():
+def test_parse_value_and_every_source_from_config(tmp_path):
   assert train_cli.parse_value('(4,)') == (4,)
   assert train_cli.parse_value('[4, [5]]') == (4, (5,))
   assert train_cli.parse_value('null') is None
   assert train_cli.parse_value('fused') == 'fused'
-  for kind in ('nerfies', 'interp'):
-    with pytest.raises(NotImplementedError, match='queue 1 item 8'):
-      tdatasets.from_config(tconfig.ExperimentConfig(datasource_type=kind))
-  src = tdatasets.from_config(tconfig.ExperimentConfig(
+  from nerfds_tpu import datasets as jdatasets
+  jsynthetic.write_nerfies_dataset(
+      jsynthetic.SyntheticDataSource(num_frames=8, image_size=8,
+                                     gt_samples=8), tmp_path,
+      scene_center=(0.1, 0.2, -0.3), scene_scale=0.9)
+  for kind in ('synthetic', 'nerfies', 'interp'):
+    kw = dict(datasource_type=kind, data_dir=str(tmp_path), random_seed=5,
+              synthetic_frames=4, synthetic_image_size=8, interp_interval=3)
+    src = tdatasets.from_config(tconfig.ExperimentConfig(**kw))
+    want = jdatasets.from_config(jconfig.ExperimentConfig(**kw))
+    assert type(src).__name__ == type(want).__name__, kind
+    assert (src.train_ids, src.val_ids) == (want.train_ids, want.val_ids)
+    assert (src.near, src.far) == (want.near, want.far)
+    assert src.embeddings_dict == want.embeddings_dict
+    points = src.load_points(shuffle=True)
+    assert points is not None and points.shape[1] == 3, kind
+    np.testing.assert_array_equal(points, want.load_points(shuffle=True))
+    assert len(src.load_test_cameras()) == len(want.load_test_cameras())
+  assert src.interval == 3 and len(src.load_test_cameras()) == 2
+  synthetic = tdatasets.from_config(tconfig.ExperimentConfig(
       datasource_type='synthetic', synthetic_frames=4,
       synthetic_image_size=8))
-  assert src.num_frames == 4 and src.image_size == 8
-  assert src.load_points() is None and src.load_test_cameras() == []
-  assert src.frame_time('0002') == jsynthetic.SyntheticDataSource(
+  assert synthetic.num_frames == 4 and synthetic.image_size == 8
+  assert synthetic.load_test_cameras() == []
+  assert synthetic.frame_time('0002') == jsynthetic.SyntheticDataSource(
       num_frames=4).frame_time('0002')
+  with pytest.raises(ValueError, match='Unknown datasource'):
+    tdatasets.from_config(tconfig.ExperimentConfig(datasource_type='x'))
