@@ -40,14 +40,36 @@
    view and a novel camera path (K2 only), and scores the rendered val
    frame with ``metrics_pipeline`` against the eval CLI's PSNR; times the
    PNG decode of an exported frame and of a Paeth-filtered panel.
-10. Prints one JSON line describing every kernel ("launches": the render's
-   count for K1f and K2, the training run's for K1b, the eval path's for
-   K3; "launches_render", "launches_train" and "launches_capture" for all
-   four), a line of the training numbers, a line of the eval numbers, a
-   line of the capture numbers, the card's line, and as the last line
-   ``{"ok": true, "device": {...}}``. K2's and K3's entries hold their
-   times at every timed shape under "shapes"; K3's σ/normal head there
-   also holds its library call's time (``F.linear``).
+10. The speed and precision modes at full width. (a) K1f and K1b in their
+   bf16-operand mode against their bf16 plain versions (K1f at the
+   training batch's rows, a render chunk's and a ragged N; K1b at the
+   training shapes and a ragged N, two launches giving the same bits):
+   every row beyond the bf16 tolerance reproduced by the plain version in
+   float64 with the roundings or masks moved that lie at a boundary
+   (``fused_trunk.check_bf16_rows``), and the float32 kernels shown to
+   fail that rule; each timed beside the float32 kernel, with the bf16
+   tensor-core bound and the f32-FMA ceiling. (b) ``nerf_ds_fast`` (∇σ
+   top-k) for 24 steps through ``Trainer.train`` (K2 twice a step, K1
+   never: top-k acts in 'vmap' mode), its gradients against the plain
+   path's, then the train CLI with ``--preset nerf_ds_fast``. (c)
+   ``compute_dtype='bfloat16'`` in the trunk, rgb and mask zones with
+   'fused' ∇σ, 24 steps (K1f, K1b in bf16 and K2 twice a step, K1 in
+   float32 never), its gradients against the same model on K1's plain
+   bf16 versions. (d) bf16 activation
+   storage, 24 steps. (e) ``python -m nerfds_torch.quality_ablate`` with
+   the cases f32 and topk16 at seeds 0 and 1, 30 steps: its rows and its
+   PAIRED_SUMMARY line.
+11. Prints one JSON line describing every kernel, the two bf16 modes of
+   the trunk kernels included ("launches": the render's count for K1f and
+   K2, the training run's for K1b, the eval path's for K3, phase 10(c)'s
+   for the bf16 modes; "launches_render", "launches_train",
+   "launches_capture" and "launches_speed_modes" for all six), a line of
+   the training numbers, a line of the eval numbers, a line of the
+   capture numbers, a line of the speed modes' numbers, the card's line,
+   and as the last line ``{"ok": true, "device": {...}}``. K2's and K3's
+   entries hold their times at every timed shape under "shapes"; K3's
+   σ/normal head there also holds its library call's time
+   (``F.linear``).
 
 TF32 is switched off for matmuls and convolutions, so every plain version
 runs in full float32 like the kernels. Exits nonzero at the first failure.
@@ -62,6 +84,7 @@ import time
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
 # The training run: rays a batch (nerf_ds_train_config's), steps through
 # Trainer.train, and steady steps timed per turn on each path.
 TRAIN_BATCH = 512
@@ -73,6 +96,11 @@ K1B_SIZES = (TRAIN_BATCH * 64, TRAIN_BATCH * 128, 4099)
 # K1f's main-path shapes: the coarse and fine rows of a 4096-ray render
 # chunk and of a training batch.
 K1F_MAIN_SIZES = (4096 * 64, 4096 * 128, TRAIN_BATCH * 64, TRAIN_BATCH * 128)
+# K1f's shapes in its bf16 mode (phase 10): the training batch's fine and
+# coarse rows (the main path, first), a render chunk's rows, a ragged N.
+K1_BF16_FWD_SIZES = (TRAIN_BATCH * 128, TRAIN_BATCH * 64, 4096 * 128, 4099)
+# Phase 10's paired-seed gate run: steps of each (case, seed).
+GATE_STEPS = 30
 # K3's check: the render chunk's sample rows (4096 rays x 128 samples,
 # timed), a ragged N, the edges of the 64-row tile and none.
 K3_SIZES = (4096 * 128, 4099, 65, 63, 1, 0)
@@ -845,14 +873,13 @@ def phase_train(torch, device):
     out[name]['host_syncs'] = sum(syncs.values())
     print(f'  host synchronisations in one {name}-path step: '
           f'{sum(syncs.values())}, at {syncs}')
-  return launches, out
+  return launches, out, trainer
 
 
 def eval_launches_check(launches, chunks: int):
   """K2 twice an eval chunk (coarse and fine); K1f, K1b and K3 never: eval
   renders skip ∇σ, and no model path calls K3."""
-  want = {'composite_fwd': 2 * chunks, 'fused_trunk_fwd': 0,
-          'fused_trunk_bwd': 0, 'fused_mlp_fwd': 0}
+  want = {**dict.fromkeys(launches, 0), 'composite_fwd': 2 * chunks}
   if launches != want:
     raise AssertionError(f'eval launches {launches}, want {want}')
 
@@ -1155,6 +1182,394 @@ def phase_capture(torch, device):
   return total, out
 
 
+def trunk_bf16_bounds(spec, weights, n: int, flops: int, in_out_floats: int):
+  """(bound ms, what bounds it, f32-FMA ceiling ms) of a trunk kernel in
+  bf16 on N rows: its operations at the bf16 tensor-core peak or its bytes
+  (float32 inputs and outputs, bf16 weights) at the memory rate; and the
+  same operations at the float32 CUDA-core peak, the ceiling of this
+  engine, which widens each operand to float32 for an FMA."""
+  n_weights = sum(w.numel() for w, _ in weights.layers) + \
+      weights.head[0].numel() + weights.bottleneck[0].numel()
+  n_biases = sum(b.numel() for _, b in weights.layers) + \
+      weights.head[1].numel() + weights.bottleneck[1].numel()
+  nbytes = 2 * n_weights + 4 * (n_biases + in_out_floats)
+  t_ops, t_bytes = flops / PEAK_BF16_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+  return (1e3 * max(t_ops, t_bytes),
+          'operations' if t_ops >= t_bytes else 'bytes',
+          1e3 * flops / PEAK_F32_FLOP_PER_S)
+
+
+def sites_used(flips) -> str:
+  """'k rows with s moved sites, ...' of check_bf16_rows' explanations."""
+  counts = {}
+  for f in flips:
+    counts[len(f)] = counts.get(len(f), 0) + 1
+  return ', '.join(f'{c} with {k} moved site{"s" * (k != 1)}'
+                   for k, c in sorted(counts.items())) or 'none'
+
+
+def bf16_rows(torch, fused_trunk, names, feat, weights, spec, got, want):
+  """K1f's outputs in bf16 against the plain bf16 version: finite, of the
+  plain version's shapes, and every row beyond atol 1e-3 + rtol 1e-2 in
+  one of them explained by fused_trunk.check_bf16_rows (which raises
+  otherwise). Returns the largest |got - want|."""
+  for name, g, w in zip(names, got, want):
+    if tuple(g.shape) != tuple(w.shape) or not bool(torch.isfinite(g).all()):
+      raise AssertionError(f'{name}: shape {tuple(g.shape)} against '
+                           f'{tuple(w.shape)}, or non-finite values')
+  errs = [(g - w).abs() for g, w in zip(got, want)]
+  print('  ' + ', '.join(
+      f'{name} max_abs_err {e.max().item():.3e} beyond '
+      f'{(e > 1e-3 + 1e-2 * w.abs()).float().mean().item():.2e}'
+      for name, e, w in zip(names, errs, want)))
+  _, rows, flips = fused_trunk.check_bf16_rows(feat, weights, spec, got, want)
+  print(f'  {len(rows)} rows beyond, each reproduced with '
+        f'{sites_used(flips)}')
+  return max(e.max().item() for e in errs)
+
+
+def phase_trunk_bf16(torch, device):
+  """Phase 10(a): K1f and K1b in their bf16-operand mode against their
+  bf16 plain versions, at the render shape (K1f), the training shapes and
+  a ragged N; each timed beside the float32 kernel on the same inputs."""
+  from nerfds_torch.kernels import fused_trunk
+  bf16 = torch.bfloat16
+  print('== speed modes (a): K1f and K1b with bf16 operands vs their plain '
+        'bf16 versions')
+  spec, weights = nerf_ds_trunk(torch, device, seed=3)
+  names = ('sigma', 'normal', 'trunk_out', 'bottleneck', 'g')
+  fwd = dict(name='fused_trunk_fwd_bf16', route='cuda',
+             source='nerfds_torch/kernels/csrc/fused_trunk_fwd.cu',
+             replaces='nerfds_tpu/pallas/fused_trunk.py:252',
+             max_abs_err=0.0, library_ms=None)
+  bwd = dict(name='fused_trunk_bwd_bf16', route='cuda',
+             source='nerfds_torch/kernels/csrc/fused_trunk_bwd.cu',
+             replaces='nerfds_tpu/pallas/fused_trunk.py:295',
+             max_abs_err=0.0, library_ms=None)
+  with torch.no_grad():
+    for n in K1_BF16_FWD_SIZES:
+      gen = torch.Generator(device=device).manual_seed(n + 5)
+      feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
+      got = fused_trunk.trunk_sigma_grad(feat, weights, spec,
+                                         compute_dtype=bf16)
+      want = fused_trunk.trunk_sigma_grad_reference(feat, weights, spec,
+                                                    compute_dtype=bf16)
+      torch.cuda.synchronize()
+      print(f' K1f bf16, N={n}')
+      fwd['max_abs_err'] = max(fwd['max_abs_err'],
+                               bf16_rows(torch, fused_trunk, names, feat,
+                                         weights, spec, got, want))
+      if n == K1_BF16_FWD_SIZES[0]:
+        # The float32 kernel against the same rule, which it must fail.
+        f32 = fused_trunk.trunk_sigma_grad(feat, weights, spec)
+        print('  the f32 kernel beyond that tolerance: ' + ', '.join(
+            f'{name} {((g - w).abs() > 1e-3 + 1e-2 * w.abs()).float().mean().item():.2e}'
+            for name, g, w in zip(names, f32, want)))
+        try:
+          fused_trunk.check_bf16_rows(feat, weights, spec, f32, want)
+        except AssertionError as e:
+          print(f'  the rule rejects the f32 kernel: {str(e)[:90]}')
+        else:
+          raise AssertionError('K1f: the f32 kernel meets the bf16 rule, so '
+                               'the rule does not tell the modes apart')
+        del f32
+      del got, want
+      ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad(
+          feat, weights, spec, compute_dtype=bf16), 3, warmup=1)
+      f32_ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad(
+          feat, weights, spec), 3, warmup=1)
+      plain_ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_reference(
+          feat, weights, spec, compute_dtype=bf16), 3, warmup=1)
+      bound_ms, bound_by, fma_ms = trunk_bf16_bounds(
+          spec, weights, n, n * trunk_flops(spec),
+          n * (2 * spec.in_dim + 1 + spec.norm_dim + 2 * spec.width))
+      print(f'  time: bf16 kernel {ms:.3f} ms, f32 kernel {f32_ms:.3f} ms, '
+            f'plain bf16 {plain_ms:.3f} ms; bound {bound_ms:.3f} ms '
+            f'({bound_by}, bf16 tensor cores), f32-FMA ceiling {fma_ms:.3f} '
+            f'ms: {bound_ms / ms:.1%} and {fma_ms / ms:.1%}')
+      if n == K1_BF16_FWD_SIZES[0]:
+        fwd.update(ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, fma_ceiling_ms=fma_ms)
+      elif n != 4099:
+        fwd.update({f'{k}_n{n}': v for k, v in dict(
+            ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            fma_ceiling_ms=fma_ms).items()})
+      del feat
+    for n in K1B_SIZES:
+      gen = torch.Generator(device=device).manual_seed(n + 6)
+      feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
+      cots = tuple(torch.randn(n, c, generator=gen, device=device)
+                   for c in (1, spec.norm_dim, spec.width, spec.width,
+                             spec.in_dim))
+      runs = [fused_trunk.trunk_sigma_grad_backward(
+          feat, weights, spec, cots, compute_dtype=bf16) for _ in range(2)]
+      want_x, want_w = fused_trunk.trunk_sigma_grad_backward_reference(
+          feat, weights, spec, cots, compute_dtype=bf16)
+      torch.cuda.synchronize()
+      got, again = ([x, *fused_trunk._flatten(w)] for x, w in runs)
+      want = [want_x, *fused_trunk._flatten(want_w)]
+      same = all(torch.equal(a, b) for a, b in zip(got, again))
+      print(f' K1b bf16, N={n}: repeat launch bit-identical: {same}')
+      if not same:
+        raise AssertionError('K1b bf16: two launches on the same inputs '
+                             'differ')
+      # Tolerance relative to each tensor's norm: rounding boundaries as for
+      # K1f, over every row's contribution to the grads (measured on an
+      # H100: at most 2.6e-3).
+      rels = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+              for g, w in zip(got, want)]
+      _, rows, flips = fused_trunk.check_bf16_rows(
+          feat, weights, spec, got[0], want[0], cots, name='feat_bar')
+      print(f'  feat_bar: {len(rows)} rows beyond atol 1e-3 + rtol 1e-2, '
+            f'each reproduced with {sites_used(flips)}')
+      if n == TRAIN_BATCH * 128:
+        # The float32 kernel against the same tolerance, which it must fail.
+        x32, w32 = fused_trunk.trunk_sigma_grad_backward(feat, weights, spec,
+                                                         cots)
+        rel32 = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+                 for g, w in zip([x32, *fused_trunk._flatten(w32)], want)]
+        print(f'  the f32 kernel against the bf16 plain version: feat_bar '
+              f'{rel32[0]:.3e}, the grads {min(rel32[1:]):.3e} to '
+              f'{max(rel32[1:]):.3e}')
+        if rel32[0] <= 5e-3 or max(rel32) <= 5e-3:
+          raise AssertionError('K1b: the f32 kernel is within 5e-3 of the '
+                               'bf16 plain version, so the tolerance does '
+                               'not tell the modes apart')
+        del x32, w32
+      errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+      bwd['max_abs_err'] = max(bwd['max_abs_err'], *errs)
+      print(f'  feat_bar and {len(got) - 1} grads: worst |got - want| / '
+            f'|want| {max(rels):.3e} (feat_bar {rels[0]:.3e})')
+      if max(rels) > 5e-3 or not all(bool(torch.isfinite(g).all())
+                                     for g in got):
+        raise AssertionError(f'K1b bf16 at N={n}: |got - want| / |want| '
+                             f'{max(rels):.2e} > 5e-3')
+      del runs, got, again, want, want_w
+      if n != 4099:
+        ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
+            feat, weights, spec, cots, compute_dtype=bf16), 3, warmup=1)
+        f32_ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
+            feat, weights, spec, cots), 3, warmup=1)
+        plain_ms = time_ms(
+            torch, lambda: fused_trunk.trunk_sigma_grad_backward_reference(
+                feat, weights, spec, cots, compute_dtype=bf16), 3, warmup=1)
+        torch.cuda.reset_peak_memory_stats()
+        fused_trunk.trunk_sigma_grad_backward(feat, weights, spec, cots,
+                                              compute_dtype=bf16)
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        n_weights = sum(w.numel() + b.numel() for w, b in weights.layers) + \
+            sum(t.numel() for t in (*weights.head, *weights.bottleneck))
+        bound_ms, bound_by, fma_ms = trunk_bf16_bounds(
+            spec, weights, n, n * trunk_bwd_flops(spec),
+            n * (2 * spec.in_dim + 1 + spec.norm_dim + 2 * spec.width
+                 + spec.in_dim) + n_weights)
+        print(f'  time: bf16 kernel {ms:.3f} ms, f32 kernel {f32_ms:.3f} ms, '
+              f'plain bf16 {plain_ms:.3f} ms; bound {bound_ms:.3f} ms '
+              f'({bound_by}), f32-FMA ceiling {fma_ms:.3f} ms: '
+              f'{bound_ms / ms:.1%} and {fma_ms / ms:.1%}; peak memory of a '
+              f'call {peak_gib:.2f} GiB (scratch '
+              f'{4 * fused_trunk.backward_scratch_floats(n, spec.depth, bf16) / 2**30:.2f} GiB)')
+        vals = dict(ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    fma_ceiling_ms=fma_ms, peak_gib=peak_gib)
+        if n == TRAIN_BATCH * 128:
+          bwd.update(vals)
+        else:
+          bwd.update({f'{k}_n{n}': v for k, v in vals.items()
+                      if k != 'bound_by'})
+      del feat, cots
+  return [fwd, bwd]
+
+
+class plain_trunk_kernels:
+  """Within the block, K1f's and K1b's wrappers run their plain versions on
+  CUDA tensors too: the plain path of a 'fused' model on the card (a check
+  of this script; the package's wrappers launch the kernels there)."""
+
+  def __enter__(self):
+    from nerfds_torch.kernels import fused_trunk
+    self.module, self.saved = fused_trunk, (fused_trunk._launch,
+                                            fused_trunk._launch_backward)
+    fused_trunk._launch = (
+        lambda feat, weights, spec, operands=None, compute_dtype=None:
+        fused_trunk.trunk_sigma_grad_reference(feat, weights, spec,
+                                               compute_dtype))
+    fused_trunk._launch_backward = (
+        lambda feat, weights, spec, cots, operands=None, compute_dtype=None:
+        fused_trunk.trunk_sigma_grad_backward_reference(
+            feat, weights, spec, cots, compute_dtype))
+    return self
+
+  def __exit__(self, *exc):
+    self.module._launch, self.module._launch_backward = self.saved
+
+
+def train_mode(torch, device, trainer, name, cfg, plain_cfg=None,
+               plain_ctx=None, **want):
+  """24 steps of ``cfg`` through Trainer.train on ``trainer``'s store;
+  the launches must be ``want`` (0 for the rest) and the losses finite.
+  With ``plain_cfg`` (and ``plain_ctx``, a context the plain path runs in)
+  the trained state's gradients on one batch are held against the plain
+  path's. Returns (launches, numbers)."""
+  import numpy as np
+  from nerfds_torch import kernels
+  from nerfds_torch.datasets import sample_batch
+  from nerfds_torch.models import NerfDSModel
+  from nerfds_torch.trainer import Trainer
+  from nerfds_torch.training import step as step_lib
+  steps, batch_size = TRAIN_STEPS, TRAIN_BATCH
+  train_cfg = trainer.train_cfg
+  run = Trainer.from_experiment(cfg, train_cfg, trainer.datasource)
+  store = trainer.build_store()
+  losses = []
+  kernels.reset_launch_counts()
+  start = time.perf_counter()
+  state = run.train(num_steps=steps, store=store, log_fn=lambda step, log: (
+      losses.append(log['stats']['fine']['loss/total'])))
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - start
+  launches = dict(kernels.launch_counts)
+  print(f' {name}: {steps} steps in {seconds:.2f} s, fine loss '
+        f'{losses[0]:.5f} -> {losses[-1]:.5f}')
+  check_launches(name, launches, **{k: v * steps for k, v in want.items()})
+  if not (len(losses) == steps and np.isfinite(losses).all()):
+    raise AssertionError(f'{name}: training losses {losses}')
+  out = dict(seconds=seconds, loss_first=losses[0], loss_last=losses[-1])
+  if plain_cfg is None:
+    return launches, out
+  plain = NerfDSModel(plain_cfg, num_warp_embeds=run.model.num_warp_embeds,
+                      num_hyper_embeds=run.model.num_hyper_embeds,
+                      near=run.model.near, far=run.model.far, device=device)
+  scalars = step_lib.eval_schedules(step_lib.build_schedules(train_cfg),
+                                    state.step)
+  gen = lambda: torch.Generator(device=device).manual_seed(321)
+  batch = sample_batch(store, gen(), batch_size)
+  got, _ = step_lib._grads(step_lib.make_loss_fn(run.model, train_cfg),
+                           state.params, batch, gen(), scalars)
+  import contextlib
+  with plain_ctx or contextlib.nullcontext():
+    want, _ = step_lib._grads(step_lib.make_loss_fn(plain, train_cfg),
+                              state.params, batch, gen(), scalars)
+  torch.cuda.synchronize()
+  rels = {k: ((got[k] - w).norm() / w.norm().clamp_min(1e-30)).item()
+          for k, w in want.items()}
+  worst = max(rels, key=rels.get)
+  print(f'  gradients vs the plain path, |got - want| / |want| over '
+        f'{len(rels)} tensors: worst {rels[worst]:.3e} ({worst}), median '
+        f'{float(np.median(list(rels.values()))):.3e}')
+  out.update(grad_rel_worst=rels[worst], grad_rel_median=float(
+      np.median(list(rels.values()))))
+  return launches, out, rels, (state, batch, scalars, run)
+
+
+def phase_speed_modes(torch, device, trainer):
+  """Phase 10 (b)-(e): the speed and precision modes at the full width of
+  nerf_ds(), on the train phase's synthetic store."""
+  import dataclasses
+  import tempfile
+  import numpy as np
+  from nerfds_torch import config as config_lib
+  from nerfds_torch import kernels
+  from nerfds_torch import train as train_cli
+  print('== speed modes (b)-(e): nerf_ds_fast, bf16 zones with K1 in bf16, '
+        'bf16 storage, quality_ablate; nerf_ds() at full width, batch '
+        f'{TRAIN_BATCH}, {TRAIN_STEPS} steps')
+  out, launches = {}, {}
+  # (b) nerf_ds_fast: top-k acts in 'vmap' mode, so K1 never runs; K2
+  # composites both levels.
+  fast = dataclasses.replace(config_lib.nerf_ds_fast(),
+                             use_pallas_compositing=True)
+  launches['fast'], out['fast'], rels, _ = train_mode(
+      torch, device, trainer, 'nerf_ds_fast', fast,
+      plain_cfg=dataclasses.replace(fast, use_pallas_compositing=False),
+      composite_fwd=2)
+  # Tolerance relative to each tensor's norm: float32; K2 sums in another
+  # order than torch.cumprod.
+  if max(rels.values()) > 1e-3:
+    raise AssertionError(f'nerf_ds_fast gradients: {max(rels.values()):.2e}')
+  # The same preset through the train CLI, a few steps on the card.
+  with tempfile.TemporaryDirectory() as tmp:
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    state, metrics, _ = train_cli.main([
+        '--preset', 'nerf_ds_fast', '--datasource', 'synthetic', '--exp_dir',
+        tmp, '--batch_size', str(TRAIN_BATCH), '--max_steps', '6', '--set',
+        'model.use_pallas_compositing=True'])
+    torch.cuda.synchronize()
+    cli = dict(kernels.launch_counts)
+  print(f'  train CLI --preset nerf_ds_fast: 6 steps and its closing eval in '
+        f'{time.perf_counter() - start:.1f} s, launches {cli}, val psnr '
+        f'{metrics["psnr"]:.2f}')
+  if (state.step != 6 or not np.isfinite(metrics['psnr'])
+      or cli['composite_fwd'] < 12 or cli['composite_fwd'] % 2
+      or sum(cli.values()) != cli['composite_fwd']):
+    raise AssertionError(f'train CLI nerf_ds_fast: step {state.step}, '
+                         f'launches {cli}, metrics {metrics}')
+  out['fast']['cli_launches'] = cli
+  # (c) bf16 compute in the trunk, rgb and mask zones, 'fused': K1f and K1b
+  # in bf16 twice a step, never in float32; held against the same model
+  # with K1's plain bf16 versions and plain compositing.
+  zones = dataclasses.replace(
+      config_lib.nerf_ds(), compute_dtype='bfloat16',
+      bf16_zones=('trunk', 'rgb', 'mask'), sigma_gradient_mode='fused',
+      use_pallas_compositing=True)
+  launches['bf16'], out['bf16'], rels, (state, batch, scalars, run) = (
+      train_mode(torch, device, trainer, 'bf16 zones', zones,
+                 plain_cfg=dataclasses.replace(zones,
+                                               use_pallas_compositing=False),
+                 plain_ctx=plain_trunk_kernels(), composite_fwd=2,
+                 fused_trunk_fwd_bf16=2, fused_trunk_bwd_bf16=2))
+  # Tolerance relative to each tensor's norm: bf16 rounding boundaries, as
+  # in phase (a), through the whole step.
+  if max(rels.values()) > 1e-2:
+    raise AssertionError(f'bf16 zones gradients: {max(rels.values()):.2e}')
+  # What the bf16 mode changes: the same state and batch with K1 in float32.
+  from nerfds_torch.training import step as step_lib
+  gen = lambda: torch.Generator(device=device).manual_seed(321)
+  f32_model = type(run.model)(
+      dataclasses.replace(zones, compute_dtype=None),
+      num_warp_embeds=run.model.num_warp_embeds,
+      num_hyper_embeds=run.model.num_hyper_embeds, near=run.model.near,
+      far=run.model.far, device=device)
+  got, _ = step_lib._grads(step_lib.make_loss_fn(run.model, run.train_cfg),
+                           state.params, batch, gen(), scalars)
+  f32, _ = step_lib._grads(step_lib.make_loss_fn(f32_model, run.train_cfg),
+                           state.params, batch, gen(), scalars)
+  f32_rels = [((got[k] - w).norm() / w.norm().clamp_min(1e-30)).item()
+              for k, w in f32.items()]
+  out['bf16']['f32_grad_rel_median'] = float(np.median(f32_rels))
+  print(f'  the float32 model on the same state and batch: |bf16 - f32| / '
+        f'|f32| median {np.median(f32_rels):.3e}, worst {max(f32_rels):.3e}')
+  del got, f32, state, batch, run, f32_model
+  # (d) bf16 activation storage, 'fused' with K1 in float32.
+  storage = dataclasses.replace(
+      config_lib.nerf_ds(), storage_dtype='bfloat16',
+      sigma_gradient_mode='fused', use_pallas_compositing=True)
+  launches['storage'], out['storage'] = train_mode(
+      torch, device, trainer, 'bf16 storage', storage, composite_fwd=2,
+      fused_trunk_fwd=2, fused_trunk_bwd=2)
+  # (e) The paired-seed gate's CLI on the card: two cases, two seeds.
+  argv = [sys.executable, '-m', 'nerfds_torch.quality_ablate', '--cases',
+          'f32,topk16', '--seeds', '0,1', '--steps', str(GATE_STEPS)]
+  start = time.perf_counter()
+  done = subprocess.run(argv, capture_output=True, text=True, timeout=900)
+  seconds = time.perf_counter() - start
+  lines = done.stdout.strip().splitlines()
+  rows = [json.loads(x) for x in lines if x.startswith('{')]
+  print(f'  {" ".join(argv[1:])}: {seconds:.1f} s, exit {done.returncode}')
+  for x in lines:
+    print(f'    {x}')
+  if (done.returncode != 0 or [(r['case'], r['seed']) for r in rows] != [
+      ('f32', 0), ('f32', 1), ('topk16', 0), ('topk16', 1)]
+      or not lines[-1].startswith('PAIRED_SUMMARY ')
+      or not all(np.isfinite(r['val_psnr']) for r in rows)):
+    raise AssertionError(f'quality_ablate: {done.stderr[-3000:]}')
+  out['quality_ablate'] = dict(seconds=seconds, rows=rows, summary=json.loads(
+      lines[-1][len('PAIRED_SUMMARY '):]))
+  return launches, out
+
+
 def check_launches(name, launches, **want):
   """``launches`` must hold the counts in ``want``, and 0 for every other
   kernel."""
@@ -1246,7 +1661,7 @@ def main() -> int:
     r['launches'] = launches[r['name']]
   results.append(phase_fused_trunk_bwd(torch, device))
   results.append(phase_fused_mlp(torch, device))
-  train_launches, train = phase_train(torch, device)
+  train_launches, train, trainer = phase_train(torch, device)
   for r in results:
     r['launches_render'] = launches[r['name']]
     r['launches_train'] = train_launches[r['name']]
@@ -1259,6 +1674,17 @@ def main() -> int:
   capture_launches, capture = phase_capture(torch, device)
   for r in results:
     r['launches_capture'] = capture_launches[r['name']]
+  bf16_results = phase_trunk_bf16(torch, device)
+  speed_launches, speed = phase_speed_modes(torch, device, trainer)
+  for r in bf16_results:
+    r['launches'] = speed_launches['bf16'][r['name']]
+    r['launches_render'] = launches[r['name']]
+    r['launches_train'] = train_launches[r['name']]
+    r['launches_capture'] = capture_launches[r['name']]
+  results += bf16_results
+  for r in results:
+    r['launches_speed_modes'] = {mode: counts[r['name']]
+                                 for mode, counts in speed_launches.items()}
   print(json.dumps({'kernels': results}))
   print(f'training at batch {TRAIN_BATCH}, steady steps: ' + '; '.join(
       f'{name} path {t["rays_per_s"]} rays/s, {t["step_ms"]} ms a step, peak '
@@ -1266,6 +1692,7 @@ def main() -> int:
       for name, t in train.items()))
   print('eval: ' + json.dumps(evaluation))
   print('capture: ' + json.dumps(capture))
+  print('speed modes: ' + json.dumps(speed))
   print(f'card: {card_line()}')
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

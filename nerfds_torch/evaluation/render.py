@@ -23,7 +23,9 @@ def make_render_fn(model: NerfDSModel, use_sample_at_infinity=None,
 
   ``compute_sigma_gradient=False`` (default) skips the per-point ∇σ, which
   only feeds the normal-supervision target; pass True to also render
-  ``target_norm``."""
+  ``target_norm``, which then comes back at every sample even where
+  ``norm_grad_topk`` is configured (the top-k form is a training-step
+  detail)."""
 
   def render_chunk(rays, extra_params, generator=None):
     with torch.no_grad():
@@ -32,7 +34,8 @@ def make_render_fn(model: NerfDSModel, use_sample_at_infinity=None,
           return_points=False, return_weights=False,
           use_sample_at_infinity=use_sample_at_infinity,
           return_full=return_full,
-          compute_sigma_gradient=compute_sigma_gradient)
+          compute_sigma_gradient=compute_sigma_gradient,
+          use_norm_grad_topk=False)
 
   return render_chunk
 

@@ -10,8 +10,12 @@ from typing import Dict
 
 import torch
 
-launch_counts: Dict[str, int] = {'composite_fwd': 0, 'fused_trunk_fwd': 0,
-                                  'fused_trunk_bwd': 0, 'fused_mlp_fwd': 0}
+# The trunk kernels' bf16-operand instantiations count apart from their
+# float32 ones.
+launch_counts: Dict[str, int] = {
+    'composite_fwd': 0, 'fused_trunk_fwd': 0, 'fused_trunk_bwd': 0,
+    'fused_trunk_fwd_bf16': 0, 'fused_trunk_bwd_bf16': 0,
+    'fused_mlp_fwd': 0}
 
 
 def reset_launch_counts() -> None:

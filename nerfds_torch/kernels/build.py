@@ -32,11 +32,13 @@ SIGNATURES = {
     'composite_fwd': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, ctypes.c_float, _P],
     'fused_trunk_fwd': [_P, ctypes.POINTER(ctypes.c_uint64), _I, _I, _I,
-                        ctypes.c_uint, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    'fused_trunk_bwd': [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_uint64),
+                        ctypes.c_uint, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                        _P],
+    'fused_trunk_bwd': [_P, _P, _P, _P, _P, _P, _P,
+                        ctypes.POINTER(ctypes.c_uint64),
                         ctypes.POINTER(ctypes.c_uint64), _P, _I, _I, _I,
-                        ctypes.c_uint, _I, _I, _I, _I, ctypes.c_long, _P, _P,
-                        _P, _P],
+                        ctypes.c_uint, _I, _I, _I, _I, _I, ctypes.c_long, _P,
+                        _P, _P, _P],
     'fused_mlp_fwd': [_P, _I, _I, _I, ctypes.POINTER(ctypes.c_uint64),
                       ctypes.POINTER(ctypes.c_int), _I, _I, _P, _P],
 }

@@ -29,10 +29,11 @@ class HyperSheetMLP(nn.Module):
                            generator=generator)
 
   def forward(self, points: torch.Tensor, embed: torch.Tensor,
-              alpha=None) -> torch.Tensor:
+              alpha=None, dtype=None, storage_dtype=None) -> torch.Tensor:
     points_feat = math_ops.posenc(points, self.min_deg, self.max_deg,
                                   use_identity=False, alpha=alpha)
-    out = self.mlp([points_feat, embed])
+    out = self.mlp([points_feat, embed], dtype=dtype,
+                   storage_dtype=storage_dtype)
     if self.use_residual:
       out = out + embed
     return out
@@ -55,7 +56,9 @@ class MaskMLP(nn.Module):
                            generator=generator)
 
   def forward(self, points: torch.Tensor, embed: torch.Tensor, alpha=None,
-              use_embed: bool = True) -> torch.Tensor:
+              use_embed: bool = True, dtype=None,
+              storage_dtype=None) -> torch.Tensor:
     points_feat = math_ops.posenc(points, self.min_deg, self.max_deg,
                                   use_identity=False, alpha=alpha)
-    return self.mlp([points_feat, embed] if use_embed else points_feat)
+    return self.mlp([points_feat, embed] if use_embed else points_feat,
+                    dtype=dtype, storage_dtype=storage_dtype)

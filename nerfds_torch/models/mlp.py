@@ -9,6 +9,12 @@ and the kernels read the same layout.
 A dense layer may take a list of feature blocks: the list stands for their
 concatenation, and each block multiplies its own rows of the kernel
 (``concat([a, b]) @ W == a @ W[:da] + b @ W[da:]``), as in the JAX package.
+
+Two precision modes, as in the JAX package (``config.compute_dtype`` and
+``config.storage_dtype``): ``dtype=torch.bfloat16`` runs the stack's
+products, bias adds and activations in bf16 and returns float32;
+``storage_dtype=torch.bfloat16`` keeps float32 compute but rounds every
+stored activation through bf16 (:func:`quantize_storage`).
 """
 from __future__ import annotations
 
@@ -65,6 +71,16 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor],
   }[name]
 
 
+def quantize_storage(x: torch.Tensor, storage_dtype) -> torch.Tensor:
+  """``x`` rounded through ``storage_dtype`` (bf16) and back: the value a
+  narrow activation buffer would hold. Plain casts, so autograd (second
+  order included) differentiates the quantised forward exactly; eager
+  PyTorch never folds the round trip away, so it needs no barrier."""
+  if storage_dtype is None or x.dtype == storage_dtype:
+    return x
+  return x.to(storage_dtype).to(x.dtype)
+
+
 class Dense(nn.Module):
   """``y = x @ kernel + bias`` with a ``[in, out]`` kernel."""
 
@@ -79,22 +95,30 @@ class Dense(nn.Module):
     return dense_apply(self, x)
 
 
-def dense_apply(dense: Dense, x: Blocks) -> torch.Tensor:
-  """Dense layer over a tensor or a list of feature blocks."""
+def dense_apply(dense: Dense, x: Blocks, dtype=None) -> torch.Tensor:
+  """Dense layer over a tensor or a list of feature blocks. ``dtype``
+  (bf16): the blocks, the kernel and the bias are cast to it, and the
+  per-block products are summed in it."""
+  kernel, bias = dense.kernel, dense.bias
+  if dtype is not None:
+    kernel = kernel.to(dtype)
+    bias = bias.to(dtype) if bias is not None else None
   if isinstance(x, (list, tuple)):
     y, offset = None, 0
     for part in x:
       d = part.shape[-1]
-      contrib = part @ dense.kernel[offset:offset + d]
+      if dtype is not None:
+        part = part.to(dtype)
+      contrib = part @ kernel[offset:offset + d]
       y = contrib if y is None else y + contrib
       offset += d
-    if offset != dense.kernel.shape[0]:
+    if offset != kernel.shape[0]:
       raise ValueError(f'feature blocks sum to {offset}, kernel rows '
-                       f'{dense.kernel.shape[0]}')
+                       f'{kernel.shape[0]}')
   else:
-    y = x @ dense.kernel
-  if dense.bias is not None:
-    y = y + dense.bias
+    y = (x.to(dtype) if dtype is not None else x) @ kernel
+  if bias is not None:
+    y = y + bias
   return y
 
 
@@ -128,22 +152,36 @@ class MLP(nn.Module):
   def hidden(self, i: int) -> Dense:
     return getattr(self, f'hidden_{i}')
 
-  def forward(self, x: Blocks) -> torch.Tensor:
+  def forward(self, x: Blocks, dtype=None, storage_dtype=None
+              ) -> torch.Tensor:
+    """``dtype``: the inputs are cast once, the layers run in it and the
+    output comes back in the inputs' dtype. ``storage_dtype``: each
+    stored activation (the inputs and every hidden output) is quantised
+    through it; ignored when ``dtype`` is set."""
     act = get_activation(self.hidden_activation)
     inputs = list(x) if isinstance(x, (list, tuple)) else [x]
+    out_dtype = inputs[0].dtype
+    if dtype is not None:
+      inputs = [p.to(dtype) for p in inputs]
+    elif storage_dtype is not None:
+      inputs = [quantize_storage(p, storage_dtype) for p in inputs]
     h = None
     for i in range(self.depth):
       layer_in = inputs if i == 0 else [h]
       if i in self.skips:
         layer_in = layer_in + inputs
-      h = act(dense_apply(self.hidden(i), layer_in))
+      h = act(dense_apply(self.hidden(i), layer_in, dtype))
+      if dtype is None:
+        h = quantize_storage(h, storage_dtype)
     out = h if self.depth > 0 else inputs
     if self.output_channels > 0:
-      out = dense_apply(self.logit, out)
+      out = dense_apply(self.logit, out, dtype)
       if self.output_activation is not None:
         out = get_activation(self.output_activation)(out)
     if isinstance(out, list):  # depth 0 and no output layer: identity
       out = out[0] if len(out) == 1 else torch.cat(out, -1)
+    if dtype is not None:
+      out = out.to(out_dtype)
     return out
 
 
@@ -179,23 +217,30 @@ class NerfMLP(nn.Module):
                    rgb_branch_width, hidden_activation=activation,
                    output_channels=rgb_channels, generator=generator)
 
-  def query_bottleneck(self, x: Blocks):
-    trunk_out = self.trunk(x)
-    bottleneck = (dense_apply(self.bottleneck, trunk_out)
-                  if self.bottleneck is not None else trunk_out)
+  def query_bottleneck(self, x: Blocks, dtype=None, storage_dtype=None):
+    trunk_out = self.trunk(x, dtype=dtype, storage_dtype=storage_dtype)
+    if self.bottleneck is None:
+      return trunk_out, trunk_out
+    bottleneck = dense_apply(self.bottleneck, trunk_out, dtype)
+    if dtype is not None:
+      bottleneck = bottleneck.to(trunk_out.dtype)
+    else:
+      bottleneck = quantize_storage(bottleneck, storage_dtype)
     return trunk_out, bottleneck
 
-  def query_sigma(self, trunk_out, bottleneck, alpha_condition=None):
+  def query_sigma(self, trunk_out, bottleneck, alpha_condition=None,
+                  dtype=None):
     alpha_in = ([bottleneck, alpha_condition] if alpha_condition is not None
                 else trunk_out)
-    out = self.alpha(alpha_in)
+    out = self.alpha(alpha_in, dtype=dtype)
     sigma = out[..., :self.alpha_channels]
     norm = (out[..., self.alpha_channels:self.alpha_channels + self.norm_dim]
             if self.predict_norm else None)
     return sigma, norm
 
   def query_rgb(self, trunk_out, bottleneck, rgb_condition=None,
-                extra_rgb_condition=None, screw_condition=None, norm=None):
+                extra_rgb_condition=None, screw_condition=None, norm=None,
+                dtype=None, storage_dtype=None):
     def extend(acc, cond):
       if isinstance(cond, (list, tuple)):
         acc.extend(cond)
@@ -212,7 +257,7 @@ class NerfMLP(nn.Module):
       rgb_in.append(screw_condition)
     if norm is not None:
       rgb_in.append(norm)
-    return self.rgb(rgb_in)
+    return self.rgb(rgb_in, dtype=dtype, storage_dtype=storage_dtype)
 
   def trunk_weights(self) -> TrunkWeights:
     """The trunk, head and bottleneck weights in the fused kernel's form."""

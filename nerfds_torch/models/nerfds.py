@@ -19,11 +19,32 @@ never ``pts`` itself: the mask MLP also reads ``pts`` and its output is
 part of the warp and hyper embeddings, which the JAX package holds fixed
 when it takes the per-point gradient.
 
+The speed and precision modes of the JAX package run too:
+
+* ``compute_dtype='bfloat16'`` with ``bf16_zones`` and ``storage_dtype``
+  with ``storage_zones`` (:meth:`NerfDSModel.cdtype_for` and
+  :meth:`NerfDSModel.sdtype_for` give each of the zones 'mask', 'warp',
+  'hyper', 'trunk' and 'rgb' its dtype, passed to its MLPs as JAX does);
+* ``norm_grad_topk`` (the ``nerf_ds_fast`` preset): in ``'vmap'`` mode the
+  σ pass runs without ∇σ, and ∇σ is taken at the k samples of each ray
+  with the highest (detached) weights only; ``target_norm`` is then
+  ``[R, k, 3]`` beside ``norm_topk_idx`` ``[R, k]``. Where the mode cannot
+  act (``'fused'``, for one) the model warns and runs the exact path.
+
+K1's operand dtype in ``'fused'`` mode follows the trunk zone: bf16
+operands (f32 accumulation) when ``cdtype_for('trunk')`` is bf16, f32
+otherwise. This agrees with JAX wherever the port reads the config (JAX
+with ``compute_dtype='bfloat16'`` on an accelerator runs K1 in bf16). The
+port never reads ``matmul_precision``: where JAX picks bf16 for K1 through
+``matmul_precision=None`` alone, the port stays f32 (ROADMAP.md, the
+stated precision deviation).
+
 Flags and modes outside that set raise ``NotImplementedError``; ROADMAP.md
 queues them.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, Optional
 
 import torch
@@ -59,11 +80,8 @@ def unsupported_features(cfg: ModelConfig):
           cfg.norm_supervision_type != 'warped',
       f'sigma_gradient_mode={cfg.sigma_gradient_mode!r}':
           cfg.sigma_gradient_mode not in ('vmap', 'fused'),
-      'norm_grad_topk': cfg.norm_grad_topk is not None,
       'remat_sigma': cfg.remat_sigma,
       'remat_feat': cfg.remat_feat,
-      f'compute_dtype={cfg.compute_dtype!r}': cfg.compute_dtype is not None,
-      f'storage_dtype={cfg.storage_dtype!r}': cfg.storage_dtype is not None,
       f'norm_type={cfg.norm_type!r}': cfg.norm_type is not None,
       'concat_dense_inputs': cfg.concat_dense_inputs,
       'window_x_in_rgb_condition': cfg.window_x_in_rgb_condition,
@@ -89,6 +107,15 @@ def default_extra_params(cfg: ModelConfig) -> Dict[str, float]:
   }
 
 
+def topk_indices(weights: torch.Tensor, k: int) -> torch.Tensor:
+  """[R, k] indices of the k largest of each row of ``weights`` [R, S],
+  largest first, the lower index first among equal values (the order of
+  ``jax.lax.top_k``; ``torch.topk`` promises none). Zero weights are common
+  (empty space), so ties decide which samples get ∇σ."""
+  return torch.sort(weights, dim=-1, descending=True,
+                    stable=True).indices[:, :k]
+
+
 def _detach(x):
   if isinstance(x, rigid.Screw):
     return rigid.Screw(*(t.detach() for t in x))
@@ -112,6 +139,17 @@ class NerfDSModel(nn.Module):
           f'nerfds_torch does not port {missing} yet; see ROADMAP.md, '
           'queue 1')
     device = resolve_device(device)
+    if config.norm_grad_topk and not config.norm_grad_topk_active:
+      logging.getLogger(__name__).warning(
+          'norm_grad_topk=%d is configured but INACTIVE for this config '
+          '(requires predict_norm without use_sigma_gradient, '
+          "norm_supervision_type in ('warped','direct') and "
+          "sigma_gradient_mode in ('vmap','naive'); got "
+          'predict_norm=%s use_sigma_gradient=%s norm_supervision_type=%r '
+          'sigma_gradient_mode=%r) — the exact full-sample path will run.',
+          config.norm_grad_topk, config.predict_norm,
+          config.use_sigma_gradient, config.norm_supervision_type,
+          config.sigma_gradient_mode)
     self.config = config
     self.num_warp_embeds = num_warp_embeds
     self.num_hyper_embeds = num_hyper_embeds
@@ -163,6 +201,32 @@ class NerfDSModel(nn.Module):
   @property
   def device(self) -> torch.device:
     return self.nerf['coarse'].trunk.hidden_0.kernel.device
+
+  # -- precision zones ------------------------------------------------------
+
+  def cdtype_for(self, zone: str) -> Optional[torch.dtype]:
+    """The compute dtype of a zone ('warp', 'hyper', 'mask', 'trunk',
+    'rgb'): bf16 under ``compute_dtype='bfloat16'`` where ``bf16_zones``
+    is None or names the zone, else None (float32)."""
+    if self.config.compute_dtype != 'bfloat16':
+      return None
+    zones = self.config.bf16_zones
+    return torch.bfloat16 if zones is None or zone in zones else None
+
+  def sdtype_for(self, zone: str) -> Optional[torch.dtype]:
+    """The activation storage dtype of a zone (``mlp.quantize_storage``):
+    bf16 under ``storage_dtype='bfloat16'`` where ``storage_zones`` is None
+    or names the zone and the zone computes in float32, else None."""
+    cfg = self.config
+    if cfg.storage_dtype is None:
+      return None
+    if cfg.storage_dtype != 'bfloat16':
+      raise ValueError(f'Unsupported storage_dtype {cfg.storage_dtype!r}; '
+                       "expected None or 'bfloat16'")
+    if self.cdtype_for(zone) is not None:
+      return None
+    zones = cfg.storage_zones
+    return torch.bfloat16 if zones is None or zone in zones else None
 
   # -- static dimension bookkeeping ----------------------------------------
 
@@ -263,15 +327,18 @@ class NerfDSModel(nn.Module):
     def feat_fn(p):
       screw = None
       if use_warp:
-        screw = self.warp_field.screw(p, warp_in_embed,
-                                      extra_params['warp_alpha'])
+        screw = self.warp_field.screw(
+            p, warp_in_embed, extra_params['warp_alpha'],
+            self.cdtype_for('warp'), self.sdtype_for('warp'))
         warped_spatial = rigid.transform_point(screw, p)
       else:
         warped_spatial = p
       hyper = None
       if cfg.has_hyper:
         hyper = self.hyper_sheet(p, hyper_in_embed,
-                                 alpha=extra_params['hyper_sheet_alpha'])
+                                 alpha=extra_params['hyper_sheet_alpha'],
+                                 dtype=self.cdtype_for('hyper'),
+                                 storage_dtype=self.sdtype_for('hyper'))
       if hyper is not None and cfg.use_hyper_for_sigma:
         warped = torch.cat([warped_spatial, hyper], -1)
       else:
@@ -299,10 +366,13 @@ class NerfDSModel(nn.Module):
                                 use_warp=use_warp)
     nerf = self.nerf[level]
 
+    cdt = self.cdtype_for('trunk')
+
     def sigma_fn(p):
       feat, aux = feat_fn(p)
-      trunk_out, bottleneck = nerf.query_bottleneck(feat)
-      sigma_raw, norm = nerf.query_sigma(trunk_out, bottleneck)
+      trunk_out, bottleneck = nerf.query_bottleneck(
+          feat, dtype=cdt, storage_dtype=self.sdtype_for('trunk'))
+      sigma_raw, norm = nerf.query_sigma(trunk_out, bottleneck, dtype=cdt)
       aux.update(trunk_out=trunk_out, bottleneck=bottleneck, norm=norm)
       return sigma_raw[..., 0], aux
 
@@ -317,7 +387,7 @@ class NerfDSModel(nn.Module):
         has_bottleneck=self.has_condition)
 
   def _sigma_and_grad(self, level, pts, warp_in_embed, hyper_in_embed,
-                      extra_params, use_warp):
+                      extra_params, use_warp, mode=None):
     """σ_raw, aux and ∂σ/∂p for every point.
 
     In the caller's no-grad mode everything comes back detached. With grad
@@ -332,9 +402,10 @@ class NerfDSModel(nn.Module):
     ``p = pts.detach()``, so it reaches neither the mask path nor ``pts``.
     That leaf cuts only ∂/∂origins: no parameter lies upstream of ``pts``,
     since the fine z values are stop-gradiented (``ops/sampling.py``).
+    ``mode`` overrides the config's ``sigma_gradient_mode``.
     """
     outer_grad = torch.is_grad_enabled()
-    mode = self.config.sigma_gradient_mode
+    mode = mode or self.config.sigma_gradient_mode
     if mode == 'fused' and self.config.activation != 'relu':
       mode = 'vmap'  # as the JAX package does: the kernel is relu-only
     p = pts.detach().requires_grad_()
@@ -346,7 +417,8 @@ class NerfDSModel(nn.Module):
         parts, aux = feat_fn(p)
         feat = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
       sigma_2d, norm, trunk_out, bottleneck, g = fused_trunk.trunk_sigma_grad(
-          feat, nerf.trunk_weights(), self.trunk_spec(feat.shape[-1]))
+          feat, nerf.trunk_weights(), self.trunk_spec(feat.shape[-1]),
+          compute_dtype=self.cdtype_for('trunk'))
       (grad_pts,) = torch.autograd.grad(feat, p, grad_outputs=g,
                                         create_graph=outer_grad)
       aux.update(trunk_out=trunk_out, bottleneck=bottleneck, norm=norm)
@@ -370,7 +442,11 @@ class NerfDSModel(nn.Module):
                      use_warp=True, metadata_encoded=False,
                      use_sample_at_infinity=True, mask_ratio=1.0,
                      sharp_weights_std=1.0, return_full=False,
-                     compute_sigma_gradient=None) -> Tensors:
+                     compute_sigma_gradient=None,
+                     use_norm_grad_topk=True) -> Tensors:
+    """One level over ``points`` [R, S, 3]. ``use_norm_grad_topk=False``
+    runs the exact ∇σ path even where ``norm_grad_topk`` is active, so that
+    ``target_norm`` comes back at every sample (the eval renderer)."""
     cfg = self.config
     num_rays, num_samples = points.shape[:2]
     n = num_rays * num_samples
@@ -416,7 +492,9 @@ class NerfDSModel(nn.Module):
         mask_embed = broadcast_ray(self.encode_mask_embed(metadata))
       predicted_mask = self.mask_mlp(pts, mask_embed,
                                      alpha=extra_params['warp_alpha'],
-                                     use_embed=cfg.use_mask_embed)
+                                     use_embed=cfg.use_mask_embed,
+                                     dtype=self.cdtype_for('mask'),
+                                     storage_dtype=self.sdtype_for('mask'))
       out['predicted_mask'] = predicted_mask.reshape(num_rays, num_samples, 1)
       mask = predicted_mask * mask_ratio + gt_mask_b * (1.0 - mask_ratio)
     else:
@@ -432,6 +510,14 @@ class NerfDSModel(nn.Module):
 
     if compute_sigma_gradient is None:
       compute_sigma_gradient = cfg.needs_sigma_gradient
+    # norm_grad_topk: ∇σ is only the normal loss's target here, so the σ
+    # pass below runs without it, and it is taken after compositing at the
+    # k highest-weight samples of each ray.
+    topk_k = None
+    if (compute_sigma_gradient and use_norm_grad_topk
+        and cfg.norm_grad_topk_active):
+      topk_k = min(int(cfg.norm_grad_topk), num_samples)
+      compute_sigma_gradient = False
     if compute_sigma_gradient:
       sigma_raw, aux, grad_pts = self._sigma_and_grad(
           level, pts, warp_in_embed, hyper_in_embed, extra_params, use_warp)
@@ -477,7 +563,8 @@ class NerfDSModel(nn.Module):
 
     rgb_raw = self.nerf[level].query_rgb(
         aux['trunk_out'], aux['bottleneck'], rgb_condition,
-        extra_rgb_condition, None, norm_input_feat)
+        extra_rgb_condition, None, norm_input_feat,
+        dtype=self.cdtype_for('rgb'), storage_dtype=self.sdtype_for('rgb'))
     rgb = torch.sigmoid(rgb_raw).reshape(num_rays, num_samples, 3)
     sigma = sigma_act(rendering.noise_regularize_sigma(
         sigma_raw.reshape(num_rays, num_samples), cfg.noise_std,
@@ -495,6 +582,30 @@ class NerfDSModel(nn.Module):
 
     warped_points = aux['warped'].reshape(num_rays, num_samples, -1)
     out['warped_points'] = warped_points
+
+    if topk_k is not None:
+      topk_idx = topk_indices(weights.detach(), topk_k)
+
+      def gather_samples(x_flat):
+        """Per-sample rows [R*S, C] -> the selected rows [R*k, C]."""
+        c = x_flat.shape[-1]
+        return torch.gather(
+            x_flat.reshape(num_rays, num_samples, c), 1,
+            topk_idx[..., None].expand(-1, -1, c)).reshape(-1, c)
+
+      _, aux_k, grad_k = self._sigma_and_grad(
+          level, gather_samples(pts),
+          gather_samples(warp_in_embed) if warp_in_embed is not None
+          else None,
+          gather_samples(hyper_in_embed) if hyper_in_embed is not None
+          else None, extra_params, use_warp, mode='vmap')
+      if cfg.stop_target_norm_gradient:
+        grad_k = grad_k.detach()
+      target_k = math_ops.normalize(-grad_k)
+      if aux_k['screw'] is not None:
+        target_k = math_ops.normalize(rigid.rotate(aux_k['screw'], target_k))
+      out['target_norm'] = target_k.reshape(num_rays, topk_k, 3)
+      out['norm_topk_idx'] = topk_idx
 
     if cfg.predict_norm:
       norm_rs = norm.reshape(num_rays, num_samples, 3)
@@ -550,7 +661,8 @@ class NerfDSModel(nn.Module):
              return_weights=True, near=None, far=None,
              use_sample_at_infinity=None, mask_ratio=1.0,
              sharp_weights_std=1.0, return_full=False,
-             compute_sigma_gradient=None) -> Dict[str, Tensors]:
+             compute_sigma_gradient=None,
+             use_norm_grad_topk=True) -> Dict[str, Tensors]:
     """Coarse and fine rendering of a ray batch. ``rays``: origins [R,3],
     directions [R,3], optional viewdirs [R,3], metadata (ids or
     ``encoded_*``), mask [R,1]. ``generator`` draws the stratified samples
@@ -569,7 +681,8 @@ class NerfDSModel(nn.Module):
                   metadata_encoded=metadata_encoded, mask_ratio=mask_ratio,
                   sharp_weights_std=sharp_weights_std,
                   return_full=return_full,
-                  compute_sigma_gradient=compute_sigma_gradient)
+                  compute_sigma_gradient=compute_sigma_gradient,
+                  use_norm_grad_topk=use_norm_grad_topk)
 
     z_vals, points = sampling.sample_along_rays(
         origins, directions, cfg.num_coarse_samples, near, far,

@@ -39,17 +39,23 @@ class SE3Field(nn.Module):
     self.v = mlp_lib.Dense(trunk_width, 3, head_init, generator=generator)
 
   def screw(self, points: torch.Tensor, metadata_embed: torch.Tensor,
-            warp_alpha=None) -> rigid.Screw:
-    """Per-point screw motion. points: [N, 3]."""
+            warp_alpha=None, dtype=None, storage_dtype=None) -> rigid.Screw:
+    """Per-point screw motion. points: [N, 3]. ``dtype`` and
+    ``storage_dtype`` apply to the MLPs (``models/mlp.py``); the screw math
+    runs in float32 whatever they are."""
     points_embed = math_ops.posenc(points, self.min_deg, self.max_deg,
                                    self.use_posenc_identity, warp_alpha)
-    trunk_out = self.trunk([points_embed, metadata_embed])
-    return rigid.screw_from_raw(self.w(trunk_out), self.v(trunk_out))
+    trunk_out = self.trunk([points_embed, metadata_embed], dtype=dtype,
+                           storage_dtype=storage_dtype)
+    w = mlp_lib.dense_apply(self.w, trunk_out, dtype)
+    v = mlp_lib.dense_apply(self.v, trunk_out, dtype)
+    return rigid.screw_from_raw(w.float(), v.float())
 
   motion = screw
 
   def warp(self, points: torch.Tensor, metadata_embed: torch.Tensor,
-           warp_alpha=None) -> torch.Tensor:
+           warp_alpha=None, dtype=None, storage_dtype=None) -> torch.Tensor:
     """Point warp x -> exp(θS) x."""
     return rigid.transform_point(
-        self.screw(points, metadata_embed, warp_alpha), points)
+        self.screw(points, metadata_embed, warp_alpha, dtype, storage_dtype),
+        points)

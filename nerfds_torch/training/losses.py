@@ -106,9 +106,22 @@ def compute_loss_and_stats(
   if (model_cfg.use_predicted_norm and 'predicted_norm' in model_out
       and 'target_norm' in model_out):
     weights = model_out['weights'].detach()
-    norm_diff = torch.linalg.vector_norm(
-        model_out['predicted_norm'] - model_out['target_norm'], dim=-1)
-    norm_diff_loss = (weights * norm_diff).mean()
+    predicted_norm = model_out['predicted_norm']
+    if 'norm_topk_idx' in model_out:
+      # norm_grad_topk: the target exists at the k highest-weight samples
+      # only. Gather the prediction and the weights there and keep the
+      # full-S mean, so the loss has the exact path's scale.
+      idx = model_out['norm_topk_idx']
+      predicted_norm = torch.gather(
+          predicted_norm, 1, idx[..., None].expand(-1, -1, 3))
+      norm_diff = torch.linalg.vector_norm(
+          predicted_norm - model_out['target_norm'], dim=-1)
+      norm_diff_loss = ((torch.gather(weights, 1, idx) * norm_diff).sum()
+                        / weights.numel())
+    else:
+      norm_diff = torch.linalg.vector_norm(
+          predicted_norm - model_out['target_norm'], dim=-1)
+      norm_diff_loss = (weights * norm_diff).mean()
     stats['loss/norm_diff'] = norm_diff_loss
     loss = loss + scalars['norm_loss_weight'] * norm_diff_loss
 

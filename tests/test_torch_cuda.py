@@ -168,6 +168,66 @@ def test_fused_trunk_backward_kernel_at_tile_edges(cuda, n):
   check_trunk_backward(cuda, n, seed=n + 1)
 
 
+def check_trunk_bf16(cuda, n, seed):
+  """K1f and K1b with bf16 operands against their bf16 plain versions.
+
+  Both round the same values to bf16, but a float32 sum that lies within
+  its rounding error of a bf16 rounding boundary or of a relu kink goes the
+  other way in one of them, and that carries on through the later layers:
+  a moved mask changes a whole row of g or feat̄ (the plain version alone,
+  run in float32 against float64, shows this in 0.17% of K1f's rows and
+  0.41% of K1b's at N = 4,099). So every output is held elementwise at atol
+  1e-3 + rtol 1e-2, and each row beyond that must be reproduced within
+  float32 tolerance by the plain version in float64 with the sites moved
+  that lie at such a boundary, must not lie in the ragged last tile, and
+  such rows are at most 2% of N (``fused_trunk.check_bf16_rows``). With
+  those rows' cotangents zeroed every output of K1b lies within 5e-3 of
+  its norm, and two K1b launches give the same bits.
+  """
+  bf16 = torch.bfloat16
+  gen = torch.Generator().manual_seed(seed)
+  spec, weights = nerf_ds_trunk(cuda, gen)
+  feat = (torch.rand(n, 52, generator=gen) * 2 - 1).to(cuda)
+  cots = tuple(torch.randn(n, c, generator=gen).to(cuda)
+               for c in (1, 3, 256, 256, 52))
+  with torch.no_grad():
+    launched = kernels.launch_counts['fused_trunk_fwd_bf16']
+    got = tft.trunk_sigma_grad(feat, weights, spec, compute_dtype=bf16)
+    assert kernels.launch_counts['fused_trunk_fwd_bf16'] == launched + 1
+    want = tft.trunk_sigma_grad_reference(feat, weights, spec,
+                                          compute_dtype=bf16)
+    _, rows, flips = tft.check_bf16_rows(feat, weights, spec, got, want)
+    print(f'N={n}: K1f rows beyond {rows}, moved sites {flips}')
+    got_x, _ = tft.trunk_sigma_grad_backward(feat, weights, spec, cots,
+                                             compute_dtype=bf16)
+    want_x, _ = tft.trunk_sigma_grad_backward_reference(
+        feat, weights, spec, cots, compute_dtype=bf16)
+    off, rows, flips = tft.check_bf16_rows(feat, weights, spec, got_x,
+                                           want_x, cots, name='feat_bar')
+    print(f'N={n}: feat_bar rows beyond {rows}, moved sites {flips}')
+    cots = tuple(c * (~off).float()[:, None] for c in cots)
+    before = dict(kernels.launch_counts)
+    runs = [tft.trunk_sigma_grad_backward(feat, weights, spec, cots,
+                                          compute_dtype=bf16)
+            for _ in range(2)]
+    want_x, want_w = tft.trunk_sigma_grad_backward_reference(
+        feat, weights, spec, cots, compute_dtype=bf16)
+  assert kernels.launch_counts == {
+      **before, 'fused_trunk_bwd_bf16': before['fused_trunk_bwd_bf16'] + 2}
+  got, again, want = ([x, *tft._flatten(w)] for x, w in (
+      *runs, (want_x, want_w)))
+  for i, (g, a, w) in enumerate(zip(got, again, want)):
+    assert torch.equal(g, a), i
+    rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    assert rel < 5e-3, (i, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', (4099, *TILE_EDGES))
+def test_fused_trunk_bf16_kernels_match_plain_on_card(cuda, n):
+  check_trunk_bf16(cuda, n, seed=n + 7)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('compute_dtype', [None, torch.bfloat16])
 def test_fused_mlp_kernel_matches_plain_on_card(cuda, compute_dtype):

@@ -4,6 +4,7 @@ own kernel tests run them), the backward's autograd Function, and the
 wrappers' routing. The kernels themselves are held against their plain
 versions on the card by ``tests/test_torch_cuda.py``.
 """
+import functools
 import pathlib
 import re
 
@@ -138,6 +139,130 @@ def test_fused_trunk_plain_matches_pallas(norm_dim, has_bottleneck):
       continue
     np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                atol=1e-5)
+
+
+def rel_to_scale(got, want):
+  """max |got - want| over max |want|."""
+  want = np.asarray(want).reshape(got.shape)
+  return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+
+
+# The bf16 plain versions round where the JAX kernel rounds and multiply
+# the rounded values exactly in float32, as the JAX kernel's bf16 operands
+# with float32 accumulation do; so they differ from it only by the order
+# of float32 sums (measured: at most 1.4e-7 of the largest magnitude in
+# the forward, 7.1e-7 in the backward). The float32 versions differ from
+# the JAX bf16 kernel by 0.3% to 22% of it (g, 7% to 21% for feat̄ and the
+# weight grads), which BF16_KERNEL_TOL rejects.
+BF16_KERNEL_TOL = 1e-5
+
+
+@pytest.mark.parametrize('norm_dim,has_bottleneck', [(3, True), (0, False)])
+def test_fused_trunk_plain_bf16_matches_pallas(norm_dim, has_bottleneck):
+  params, jspec, tm, tspec, feat = trunk_case(norm_dim=norm_dim,
+                                              has_bottleneck=has_bottleneck)
+  flat = jft.trunk_params_flat(jspec, params)
+  f = jft.make_trunk_sigma_grad(jspec, tile=16, interpret=True,
+                                compute_dtype=jnp.bfloat16)
+  want = f(jnp.asarray(feat), *flat)
+  cots = trunk_cotangents(tspec, len(feat), seed=5)
+  want_x, want_w = jft._pallas_backward(
+      jnp.asarray(feat), flat, tuple(map(jnp.asarray, cots)), jspec, 16,
+      True, jnp.bfloat16)
+  outs = {}
+  with torch.no_grad():
+    for cdt in (torch.bfloat16, None):
+      fwd = tft.trunk_sigma_grad(t(feat), tm.trunk_weights(), tspec,
+                                 compute_dtype=cdt)
+      x, w = tft.trunk_sigma_grad_backward(
+          t(feat), tm.trunk_weights(), tspec, to_port_cots(cots, tspec),
+          compute_dtype=cdt)
+      outs[cdt] = ([o for o in fwd if o is not None],
+                   [x, *tft._flatten(w)])
+  want_fwd = [w for w in want if w is not None]
+  want_bwd = [want_x, *want_w]
+  got_fwd, got_bwd = outs[torch.bfloat16]
+  for i, (g, w) in enumerate(zip(got_fwd + got_bwd, want_fwd + want_bwd)):
+    assert rel_to_scale(g, w) < BF16_KERNEL_TOL, i
+  # The float32 versions fail that tolerance: g, feat̄ and every weight
+  # kernel's grad (the bias grads sum unrounded cotangents in both modes).
+  f32_fwd, f32_bwd = outs[None]
+  assert rel_to_scale(f32_fwd[-1], want_fwd[-1]) > 1e-2
+  kernels_of = lambda outs: [outs[0], *outs[1::2]]  # feat̄, then each dW
+  for g, w in zip(kernels_of(f32_bwd), kernels_of(want_bwd)):
+    assert rel_to_scale(g, w) > 1e-3
+
+
+@pytest.mark.parametrize('compute_dtype', [None, torch.bfloat16])
+def test_fused_trunk_kernel_operands_give_the_plain_result(compute_dtype):
+  """K1f's arithmetic, emulated in torch on the operands the wrapper
+  builds for the kernel (forward weights and their transposes, the
+  reverse weights to feat and the head padded to 64 columns, weights in
+  the compute dtype and biases in float32), gives the plain version's
+  result: the layouts, dtypes and paddings handed to the kernel are
+  right."""
+  _, _, tm, tspec, feat = trunk_case(n=29, seed=8)
+  weights = tm.trunk_weights()
+  wdt = compute_dtype or torch.float32
+  rnd = lambda v: v.to(wdt).float()
+  layers, ptrs = tft._layer_operands(weights, tspec, compute_dtype)
+  head_w, head_b, bn_w, bn_b = tft._head_operands(weights, compute_dtype)
+  assert len(ptrs) == 5 * tspec.depth
+  for i, (wf_h, wf_x, wr_h, wr_x, b) in enumerate(layers):
+    assert (wf_x is not None) == tspec.is_skip(i)
+    assert (wr_h is None) == (i == 0)
+    assert (wr_x is None) == (i > 0 and not tspec.is_skip(i))
+    for op in (wf_h, wf_x, wr_h, wr_x):
+      assert op is None or (op.dtype == wdt and op.is_contiguous())
+    assert b.dtype == torch.float32
+    if wr_x is not None:
+      assert wr_x.shape == (tspec.width, tft.KERNEL_NARROW_WIDTH)
+      assert not wr_x[:, tspec.in_dim:].any()
+  assert head_w.dtype == bn_w.dtype == wdt
+  assert head_w.shape == (tspec.width, tft.KERNEL_NARROW_WIDTH)
+  hc = tspec.alpha_channels + tspec.norm_dim
+  assert not head_w[:, hc:].any()
+  x = rnd(t(feat))
+  h, masks = x, []
+  for wf_h, wf_x, _, _, b in layers:
+    a = h @ wf_h.float()
+    if wf_x is not None:
+      a = a + x @ wf_x.float()
+    a = a + b
+    masks.append(a > 0)
+    h_f32 = torch.relu(a)
+    h = rnd(h_f32)
+  head = h @ head_w.float()[:, :hc] + head_b[:hc]
+  bneck = h @ bn_w.float() + bn_b
+  r = head_w[:, 0].float().expand(len(feat), tspec.width)
+  g = 0.0
+  for i in range(tspec.depth - 1, -1, -1):
+    _, _, wr_h, wr_x, _ = layers[i]
+    c = rnd(r * masks[i])
+    if wr_x is not None:
+      g = g + (c @ wr_x.float())[:, :tspec.in_dim]
+    if wr_h is not None:
+      r = c @ wr_h.float()
+  emulated = (head[:, :1], head[:, 1:hc], h_f32, bneck, g)
+  with torch.no_grad():
+    want = tft.trunk_sigma_grad_reference(t(feat), weights, tspec,
+                                          compute_dtype=compute_dtype)
+  # Tolerance: float32; the emulation sums a skip layer's products and the
+  # reverse products over transposed copies, in another order.
+  for got, w in zip(emulated, want):
+    torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
+
+
+def test_backward_scratch_sizes():
+  """K1b's device scratch at depth 8, N = 65,536: 2,147 MB in float32;
+  in bf16, h and τ (but τ_L) take half: 1,644 MB."""
+  n, depth = 65_536, 8
+  f32 = 4 * tft.backward_scratch_floats(n, depth)
+  bf16 = 4 * tft.backward_scratch_floats(n, depth, torch.bfloat16)
+  layer = n * tft.KERNEL_WIDTH
+  assert f32 == 4 * 4 * depth * layer and round(f32 / 1e6) == 2147
+  assert bf16 == (4 * (2 * depth + 1) + 2 * (2 * depth - 1)) * layer
+  assert round(bf16 / 1e6) == 1644
 
 
 def test_fused_trunk_plain_matches_autograd():
@@ -315,6 +440,69 @@ def test_check_kink_rows(row_is):
                                            want_x)
   assert rows == [row] and bool(bad[row]) and int(bad.sum()) == 1
   assert flips[0] == pytest.approx(size, rel=1e-2)
+
+
+@functools.lru_cache(maxsize=1)
+def bf16_sum_order_case(n=4099, seed=9):
+  """The nerf_ds trunk at full width, and K1f's outputs and K1b's feat̄ of
+  its plain bf16 versions run in float32 (as a kernel would give them) and
+  in float64 (as the plain version, rounded to float32): the same bf16
+  roundings, another order of sums."""
+  gen = torch.Generator().manual_seed(seed)
+  tm = NerfMLP(52, 0, 0, True, trunk_depth=8, trunk_width=256, skips=(4,),
+               predict_norm=True, generator=gen)
+  spec = tft.TrunkSpec(depth=8, width=256, skips=(4,), in_dim=52,
+                       alpha_channels=1, norm_dim=3, has_bottleneck=True)
+  weights = tm.trunk_weights()
+  feat = torch.rand(n, 52, generator=gen) * 2 - 1
+  cots = tuple(torch.randn(n, c, generator=gen) for c in (1, 3, 256, 256, 52))
+  f64 = lambda ts: tuple(t.double() if t is not None else None for t in ts)
+  w64 = tft.TrunkWeights([f64(layer) for layer in weights.layers],
+                         f64(weights.head), f64(weights.bottleneck))
+  bf16 = torch.bfloat16
+  with torch.no_grad():
+    got = tft.trunk_sigma_grad_reference(feat, weights, spec, bf16)
+    want = tuple(o.float() for o in tft.trunk_sigma_grad_reference(
+        feat.double(), w64, spec, bf16))
+    got_x = tft.trunk_sigma_grad_backward_reference(feat, weights, spec,
+                                                    cots, bf16)[0]
+    want_x = tft.trunk_sigma_grad_backward_reference(
+        feat.double(), w64, spec, f64(cots), bf16)[0].float()
+  return spec, weights, feat, cots, got, want, got_x, want_x
+
+
+@pytest.mark.parametrize('case', ['sum_order', 'wrong_row', 'ragged_tail',
+                                  'f32'])
+def test_check_bf16_rows(case):
+  """The card checks' bf16 rule. Another order of the float32 sums moves
+  rows of K1f and K1b beyond the bf16 tolerance, and each is reproduced
+  with the sites that lie at a rounding boundary or a kink moved; a row
+  wrong otherwise, any row of the ragged last tile beyond tolerance, and
+  the float32 version all fail the check."""
+  spec, weights, feat, cots, got, want, got_x, want_x = bf16_sum_order_case()
+  check = tft.check_bf16_rows
+  with torch.no_grad():
+    if case == 'sum_order':
+      for name, g, w, c in (('K1f', got, want, None),
+                            ('feat_bar', got_x, want_x, cots)):
+        bad, rows, flips = check(feat, weights, spec, g, w, c, name=name)
+        assert rows and rows == torch.nonzero(bad).flatten().tolist(), name
+        assert all(1 <= len(f) <= 2 for f in flips), (name, flips)
+      return
+    if case == 'f32':
+      f32 = tft.trunk_sigma_grad_reference(feat, weights, spec)
+      with pytest.raises(AssertionError, match='rows of 4099 beyond'):
+        check(feat, weights, spec, f32, want)
+      return
+    bad, _, _ = check(feat, weights, spec, got, want)
+    row = (feat.shape[0] - 1 if case == 'ragged_tail'
+           else int(torch.nonzero(~bad)[0]))
+    wrong = list(got)
+    wrong[4] = got[4].clone()
+    wrong[4][row] += 0.1
+    with pytest.raises(AssertionError, match=(
+        'ragged last tile' if case == 'ragged_tail' else 'match no plain')):
+      check(feat, weights, spec, wrong, want)
 
 
 def test_trunk_sigma_grad_function_refuses_double_backward():

@@ -185,8 +185,8 @@ def test_convert_round_trip():
 def test_unsupported_features_raise():
   for flag in (dict(use_bone=True), dict(use_hyper_c=True),
                dict(norm_supervision_type='canonical'),
-               dict(norm_grad_topk=8), dict(sigma_gradient_mode='jvp'),
-               dict(remat_sigma=True), dict(compute_dtype='bfloat16'),
+               dict(remat_feat=True), dict(sigma_gradient_mode='jvp'),
+               dict(remat_sigma=True), dict(norm_type='layer'),
                dict(warp_field_type='translation')):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
       TorchModel(small(tconfig.nerf_ds(), **flag), device='cpu')
