@@ -59,14 +59,28 @@
    storage, 24 steps. (e) ``python -m nerfds_torch.quality_ablate`` with
    the cases f32 and topk16 at seeds 0 and 1, 30 steps: its rows and its
    PAIRED_SUMMARY line.
-11. Prints one JSON line describing every kernel, the two bf16 modes of
+11. The deformation family of BASELINE config[2] at full width, on the
+   train phase's store and its static points: (a) ``hypernerf()`` at 128 +
+   128 samples with the elastic, background and hyper-reg losses and
+   bendy-sheet slicing (DS), 24 steps through ``Trainer.train`` (K2 twice
+   a step, K1 and K3 never; the three losses finite at every step), its
+   gradients against the plain path's, its steady step with the warp's
+   Jacobian on and off, one step profiled and its host waits counted; (b)
+   the same with axis-aligned-plane slicing (AP), 12 steps; (c)
+   ``nerf_ds()`` with the dual-quaternion field, the elastic loss and
+   'fused' ∇σ, 24 steps (K1f, K1b and K2 twice a step), its gradients
+   against the plain path's ('vmap', plain compositing); (d) the train CLI
+   with ``--preset hypernerf`` and config[2]'s overrides, 6 steps, its
+   ``summaries/metrics.jsonl`` holding the elastic loss.
+12. Prints one JSON line describing every kernel, the two bf16 modes of
    the trunk kernels included ("launches": the render's count for K1f and
    K2, the training run's for K1b, the eval path's for K3, phase 10(c)'s
    for the bf16 modes; "launches_render", "launches_train",
-   "launches_capture" and "launches_speed_modes" for all six), a line of
-   the training numbers, a line of the eval numbers, a line of the
-   capture numbers, a line of the speed modes' numbers, the card's line,
-   and as the last line ``{"ok": true, "device": {...}}``. K2's and K3's
+   "launches_capture", "launches_speed_modes" and "launches_deformation"
+   for all six), a line of the training numbers, a line of the eval
+   numbers, a line of the capture numbers, a line of the speed modes'
+   numbers, a line of the deformation family's, the card's line, and as
+   the last line ``{"ok": true, "device": {...}}``. K2's and K3's
    entries hold their times at every timed shape under "shapes"; K3's
    σ/normal head there also holds its library call's time
    (``F.linear``).
@@ -1406,11 +1420,16 @@ class plain_trunk_kernels:
 
 
 def train_mode(torch, device, trainer, name, cfg, plain_cfg=None,
-               plain_ctx=None, **want):
-  """24 steps of ``cfg`` through Trainer.train on ``trainer``'s store;
-  the launches must be ``want`` (0 for the rest) and the losses finite.
+               plain_ctx=None, train_cfg=None, steps=TRAIN_STEPS,
+               stat_keys=(), **want):
+  """``steps`` steps of ``cfg`` through Trainer.train on ``trainer``'s
+  store, with ``train_cfg`` (default: ``trainer``'s); the launches must be
+  ``want`` (0 for the rest), the losses finite and every logged step must
+  hold the stats ``stat_keys``, each finite (``('coarse', 'loss/elastic')``
+  for a level's, ``('loss/background',)`` for the step's).
   With ``plain_cfg`` (and ``plain_ctx``, a context the plain path runs in)
-  the trained state's gradients on one batch are held against the plain
+  the trained state's gradients on one batch (with the background loss's
+  points where the config asks for that loss) are held against the plain
   path's. Returns (launches, numbers)."""
   import numpy as np
   from nerfds_torch import kernels
@@ -1418,15 +1437,23 @@ def train_mode(torch, device, trainer, name, cfg, plain_cfg=None,
   from nerfds_torch.models import NerfDSModel
   from nerfds_torch.trainer import Trainer
   from nerfds_torch.training import step as step_lib
-  steps, batch_size = TRAIN_STEPS, TRAIN_BATCH
-  train_cfg = trainer.train_cfg
+  batch_size = TRAIN_BATCH
+  train_cfg = train_cfg or trainer.train_cfg
   run = Trainer.from_experiment(cfg, train_cfg, trainer.datasource)
   store = trainer.build_store()
   losses = []
+
+  def log_fn(step, log):
+    stats = log['stats']
+    losses.append(stats['fine']['loss/total'])
+    for *level, key in stat_keys:
+      value = (stats[level[0]] if level else stats).get(key, float('nan'))
+      if not np.isfinite(value):
+        raise AssertionError(f'{name}: step {step} {level} {key} = {value}')
+
   kernels.reset_launch_counts()
   start = time.perf_counter()
-  state = run.train(num_steps=steps, store=store, log_fn=lambda step, log: (
-      losses.append(log['stats']['fine']['loss/total'])))
+  state = run.train(num_steps=steps, store=store, log_fn=log_fn)
   torch.cuda.synchronize()
   seconds = time.perf_counter() - start
   launches = dict(kernels.launch_counts)
@@ -1445,6 +1472,8 @@ def train_mode(torch, device, trainer, name, cfg, plain_cfg=None,
                                     state.step)
   gen = lambda: torch.Generator(device=device).manual_seed(321)
   batch = sample_batch(store, gen(), batch_size)
+  if run.background_points() is not None:
+    batch['background_points'] = run.background_points()
   got, _ = step_lib._grads(step_lib.make_loss_fn(run.model, train_cfg),
                            state.params, batch, gen(), scalars)
   import contextlib
@@ -1570,6 +1599,160 @@ def phase_speed_modes(torch, device, trainer):
   return launches, out
 
 
+# Phase 11: BASELINE config[2]'s losses at the JAX package's own test of
+# them, its samples (configs/hypernerf.json), the steps of its AP run and of
+# the train CLI's run, and the hyper embedding of its AP slicing (the
+# coordinates themselves, so hyper_num_dims wide).
+CONFIG2_LOSSES = dict(use_elastic_loss=True, use_background_loss=True,
+                      background_loss_weight=1.0, use_hyper_reg_loss=True,
+                      hyper_reg_loss_weight=0.001)
+CONFIG2_SAMPLES = 128
+AP_STEPS = 12
+CLI_STEPS = 6
+AP_SLICING = dict(hyper_slice_method='axis_aligned_plane',
+                  hyper_use_warp_embed=False, hyper_embed_dims=2)
+
+
+def steady_step_s(torch, device, step_fn, state, n=TRAIN_TIMED_STEPS):
+  """Seconds a step over ``n`` steady steps of ``step_fn`` from ``state``,
+  after two warm-up steps; the card synchronised at both ends."""
+  g = torch.Generator(device=device)
+  for i in range(2):
+    g.manual_seed(40_000 + i)
+    state, _ = step_fn(state, g)
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  for i in range(n):
+    g.manual_seed(50_000 + i)
+    state, _ = step_fn(state, g)
+  torch.cuda.synchronize()
+  return (time.perf_counter() - start) / n
+
+
+def phase_deformation(torch, device, trainer):
+  """Phase 11: the deformation family of BASELINE config[2] at full width
+  on the train phase's synthetic store (its ``load_points`` gives the
+  background loss's static points)."""
+  import dataclasses
+  import tempfile
+  from pathlib import Path
+  import numpy as np
+  from nerfds_torch import config as config_lib
+  from nerfds_torch import kernels
+  from nerfds_torch import train as train_cli
+  from nerfds_torch.trainer import Trainer
+  from nerfds_torch.training import step as step_lib
+  print('== deformation family: BASELINE config[2] (hypernerf(), '
+        f'{CONFIG2_SAMPLES} + {CONFIG2_SAMPLES} samples, elastic, background '
+        'and hyper-reg losses) DS and AP, and the dual-quaternion nerf_ds() '
+        f"with the elastic loss and 'fused' ∇σ; batch {TRAIN_BATCH}")
+  out, launches = {}, {}
+  # The preset's schedules compressed to the run (as --scale_schedules
+  # does): the warp's posenc window opens within a few steps, so the warp
+  # depends on x and its Jacobian is not a constant rotation.
+  scaled = dataclasses.replace(
+      config_lib.nerf_ds_train_config(max_steps=TRAIN_STEPS,
+                                      batch_size=TRAIN_BATCH,
+                                      scale_schedules=True), print_every=1)
+  train_cfg = dataclasses.replace(scaled, **CONFIG2_LOSSES)
+  ds = dataclasses.replace(config_lib.hypernerf(),
+                           num_coarse_samples=CONFIG2_SAMPLES,
+                           num_fine_samples=CONFIG2_SAMPLES,
+                           use_pallas_compositing=True)
+  keys = (('coarse', 'loss/elastic'), ('coarse', 'loss/hyper_reg'),
+          ('loss/background',))
+  # Tolerance relative to each tensor's norm, as in phase 7: float32; K2
+  # sums in another order than torch.cumprod.
+  for name, cfg, steps in (('config2_ds', ds, TRAIN_STEPS),
+                           ('config2_ap', dataclasses.replace(
+                               ds, **AP_SLICING), AP_STEPS)):
+    launches[name], out[name], rels, (state, _, _, run) = train_mode(
+        torch, device, trainer, name, cfg,
+        plain_cfg=dataclasses.replace(cfg, use_pallas_compositing=False),
+        train_cfg=train_cfg, steps=steps, stat_keys=keys, composite_fwd=2)
+    if max(rels.values()) > 1e-3:
+      raise AssertionError(f'{name} gradients: {max(rels.values()):.2e}')
+    if name != 'config2_ds':
+      continue
+    # The steady step with the Jacobian (and so the elastic loss) on and
+    # off, in turns; then one step profiled and one under the sync check.
+    store, points = trainer.build_store(), run.background_points()
+    steps_fn = {
+        on: step_lib.make_fused_train_step(
+            run.model, dataclasses.replace(train_cfg, use_elastic_loss=on),
+            store, points) for on in (True, False)}
+    times = {True: [], False: []}
+    for on in (True, False, False, True):
+      times[on].append(steady_step_s(torch, device, steps_fn[on], state))
+    out[name]['step_ms'] = 1e3 * float(np.mean(times[True]))
+    out[name]['step_ms_without_jacobian'] = 1e3 * float(np.mean(times[False]))
+    print(f'  config[2] DS steady step: {out[name]["step_ms"]:.1f} ms with '
+          f'the Jacobian ({", ".join(f"{1e3 * x:.1f}" for x in times[True])}'
+          f'), {out[name]["step_ms_without_jacobian"]:.1f} ms without ('
+          f'{", ".join(f"{1e3 * x:.1f}" for x in times[False])})')
+    g = torch.Generator(device=device)
+    g.manual_seed(60_000)
+    box = [steps_fn[True](state, g)[0]]
+
+    def one_step(g=g, box=box):
+      box[0] = steps_fn[True](box[0], g)[0]
+
+    profile = profile_device(torch, one_step, 'config[2] DS training step')
+    out[name]['device_ms'] = sum(profile.values())
+    syncs = host_syncs(torch, one_step)
+    out[name]['host_syncs'] = sum(syncs.values())
+    print(f'  host synchronisations in one config[2] DS step: '
+          f'{sum(syncs.values())}, at {syncs}')
+    del state, run, steps_fn, box
+  # (c) The dual-quaternion nerf_ds with the elastic loss and 'fused' ∇σ:
+  # the normal transport goes through the dual-quaternion motion into K1.
+  dq = dataclasses.replace(config_lib.nerf_ds(),
+                           warp_field_type='dual_quaternion',
+                           sigma_gradient_mode='fused',
+                           use_pallas_compositing=True)
+  launches['nerf_ds_dq'], out['nerf_ds_dq'], rels, _ = train_mode(
+      torch, device, trainer, 'nerf_ds dual quaternion', dq,
+      plain_cfg=dataclasses.replace(dq, sigma_gradient_mode='vmap',
+                                    use_pallas_compositing=False),
+      train_cfg=dataclasses.replace(scaled, use_elastic_loss=True),
+      stat_keys=(('coarse', 'loss/elastic'),), fused_trunk_fwd=2,
+      fused_trunk_bwd=2, composite_fwd=2)
+  # Tolerance as in phase 7: relu kinks may fall on the other side.
+  if max(rels.values()) > 1e-3:
+    raise AssertionError(f'nerf_ds dual quaternion gradients: '
+                         f'{max(rels.values()):.2e}')
+  # (d) The train CLI with --preset hypernerf and config[2]'s overrides.
+  overrides = [f'train.{k}={v}' for k, v in CONFIG2_LOSSES.items()] + [
+      f'model.num_coarse_samples={CONFIG2_SAMPLES}',
+      f'model.num_fine_samples={CONFIG2_SAMPLES}',
+      'model.use_pallas_compositing=True']
+  with tempfile.TemporaryDirectory() as tmp:
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    state, metrics, _ = train_cli.main([
+        '--preset', 'hypernerf', '--datasource', 'synthetic', '--exp_dir',
+        tmp, '--batch_size', str(TRAIN_BATCH), '--max_steps', str(CLI_STEPS),
+        '--scale_schedules', *(a for kv in overrides for a in ('--set', kv))])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    cli = dict(kernels.launch_counts)
+    logged = [json.loads(x) for x in (
+        Path(tmp) / 'summaries' / 'metrics.jsonl').read_text().splitlines()]
+  print(f'  train CLI --preset hypernerf with config[2]: {CLI_STEPS} steps '
+        f'and its closing eval in {seconds:.1f} s, launches {cli}, val psnr '
+        f'{metrics["psnr"]:.2f}, logged loss/elastic '
+        f'{[x.get("train/coarse/loss/elastic") for x in logged]}')
+  if (state.step != CLI_STEPS or not np.isfinite(metrics['psnr'])
+      or not logged or not all(np.isfinite(x.get(
+          'train/coarse/loss/elastic', np.nan)) for x in logged)
+      or cli['composite_fwd'] < 2 * CLI_STEPS or cli['composite_fwd'] % 2
+      or sum(cli.values()) != cli['composite_fwd']):
+    raise AssertionError(f'train CLI hypernerf: step {state.step}, launches '
+                         f'{cli}, metrics {metrics}, logged {logged}')
+  out['cli'] = dict(seconds=seconds, launches=cli)
+  return launches, out
+
+
 def check_launches(name, launches, **want):
   """``launches`` must hold the counts in ``want``, and 0 for every other
   kernel."""
@@ -1682,9 +1865,14 @@ def main() -> int:
     r['launches_train'] = train_launches[r['name']]
     r['launches_capture'] = capture_launches[r['name']]
   results += bf16_results
+  deformation_launches, deformation = phase_deformation(torch, device,
+                                                        trainer)
   for r in results:
     r['launches_speed_modes'] = {mode: counts[r['name']]
                                  for mode, counts in speed_launches.items()}
+    r['launches_deformation'] = {
+        mode: counts[r['name']]
+        for mode, counts in deformation_launches.items()}
   print(json.dumps({'kernels': results}))
   print(f'training at batch {TRAIN_BATCH}, steady steps: ' + '; '.join(
       f'{name} path {t["rays_per_s"]} rays/s, {t["step_ms"]} ms a step, peak '
@@ -1693,6 +1881,7 @@ def main() -> int:
   print('eval: ' + json.dumps(evaluation))
   print('capture: ' + json.dumps(capture))
   print('speed modes: ' + json.dumps(speed))
+  print('deformation: ' + json.dumps(deformation))
   print(f'card: {card_line()}')
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

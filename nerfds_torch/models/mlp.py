@@ -104,6 +104,10 @@ def dense_apply(dense: Dense, x: Blocks, dtype=None) -> torch.Tensor:
     kernel = kernel.to(dtype)
     bias = bias.to(dtype) if bias is not None else None
   if isinstance(x, (list, tuple)):
+    width = sum(part.shape[-1] for part in x)
+    if width != kernel.shape[0]:
+      raise ValueError(f'feature blocks sum to {width}, kernel rows '
+                       f'{kernel.shape[0]}')
     y, offset = None, 0
     for part in x:
       d = part.shape[-1]
@@ -112,9 +116,6 @@ def dense_apply(dense: Dense, x: Blocks, dtype=None) -> torch.Tensor:
       contrib = part @ kernel[offset:offset + d]
       y = contrib if y is None else y + contrib
       offset += d
-    if offset != kernel.shape[0]:
-      raise ValueError(f'feature blocks sum to {offset}, kernel rows '
-                       f'{kernel.shape[0]}')
   else:
     y = (x.to(dtype) if dtype is not None else x) @ kernel
   if bias is not None:

@@ -1,11 +1,16 @@
 """The NeRF-DS model (L3), counterpart of ``nerfds_tpu/models/nerfds.py``.
 
 Coarse and fine levels of a dynamic NeRF: a predicted 3D mask on the
-observation points conditions an SE(3) warp field and a hyper sheet, whose
+observation points conditions a warp field and the hyper coordinates, whose
 outputs feed the NeRF trunk; its head predicts σ and a surface normal, and
 the per-point ∇σ (``compute_sigma_gradient``) gives the normal target.
 
-The port covers the flag set of ``config.nerf_ds()``. ∇σ comes two ways,
+The port covers the flag set of ``config.nerf_ds()`` and the deformation
+family of ``config.hypernerf()``: the SE(3), dual-quaternion and
+translation warp fields (``warp_field_type``), bendy-sheet and
+axis-aligned-plane hyper slicing (``hyper_slice_method``), the warp's
+Jacobian for the elastic loss (``return_warp_jacobian``) and the warp of
+background points (:meth:`NerfDSModel.apply_warp`). ∇σ comes two ways,
 which give the same numbers:
 
 * ``sigma_gradient_mode='vmap'``: autograd of Σσ with respect to the points
@@ -56,7 +61,9 @@ from nerfds_torch.kernels import fused_trunk
 from nerfds_torch.models.embeddings import GLOEmbed
 from nerfds_torch.models.hyper import HyperSheetMLP, MaskMLP
 from nerfds_torch.models.mlp import NerfMLP, get_activation
-from nerfds_torch.models.warp import SE3Field
+from nerfds_torch.models.warp import (DualQuaternionField, SE3Field,
+                                      TranslationField)
+from nerfds_torch.ops import dual_quaternion as dq_lib
 from nerfds_torch.ops import math as math_ops
 from nerfds_torch.ops import rendering, rigid, sampling
 
@@ -67,9 +74,6 @@ def unsupported_features(cfg: ModelConfig):
   """Names of the configured features this port does not run yet."""
   checks = {
       'use_bone': cfg.use_bone,
-      f'warp_field_type={cfg.warp_field_type!r}': cfg.warp_field_type != 'se3',
-      "hyper_slice_method='axis_aligned_plane'":
-          cfg.hyper_slice_method == 'axis_aligned_plane',
       'use_hyper_c': cfg.use_hyper_c,
       'use_ref_radiance': cfg.use_ref_radiance,
       'use_sigma_gradient': cfg.use_sigma_gradient,
@@ -117,9 +121,26 @@ def topk_indices(weights: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _detach(x):
-  if isinstance(x, rigid.Screw):
-    return rigid.Screw(*(t.detach() for t in x))
+  if isinstance(x, (rigid.Screw, dq_lib.DualQuatMotion)):
+    return type(x)(*(t.detach() for t in x))
   return x.detach() if isinstance(x, torch.Tensor) else x
+
+
+def _warp_field(cfg: ModelConfig, metadata_dim: int, generator):
+  """The field ``warp_field_type`` names, at the config's widths."""
+  common = dict(min_deg=cfg.warp_min_deg, max_deg=cfg.warp_max_deg,
+                generator=generator)
+  rigid_kw = dict(trunk_depth=cfg.se3_trunk_depth,
+                  trunk_width=cfg.se3_trunk_width, skips=cfg.se3_skips,
+                  activation=cfg.activation, **common)
+  if cfg.warp_field_type == 'se3':
+    return SE3Field(metadata_dim, **rigid_kw)
+  if cfg.warp_field_type == 'dual_quaternion':
+    return DualQuaternionField(metadata_dim, **rigid_kw)
+  if cfg.warp_field_type == 'translation':
+    # The JAX package builds it at the field's own default widths.
+    return TranslationField(metadata_dim, **common)
+  raise ValueError(f'Unknown warp field type {cfg.warp_field_type!r}')
 
 
 class NerfDSModel(nn.Module):
@@ -162,15 +183,11 @@ class NerfDSModel(nn.Module):
     if cfg.use_warp:
       self.warp_embed = GLOEmbed(num_warp_embeds, cfg.warp_embed_dims,
                                  generator=gen)
-      self.warp_field = SE3Field(
-          self.warp_metadata_dim, min_deg=cfg.warp_min_deg,
-          max_deg=cfg.warp_max_deg, trunk_depth=cfg.se3_trunk_depth,
-          trunk_width=cfg.se3_trunk_width, skips=cfg.se3_skips,
-          activation=cfg.activation, generator=gen)
+      self.warp_field = _warp_field(cfg, self.warp_metadata_dim, gen)
     if self.use_hyper_embed:
       self.hyper_embed = GLOEmbed(num_hyper_embeds, cfg.hyper_embed_dims,
                                   generator=gen)
-    if cfg.has_hyper:
+    if cfg.hyper_slice_method == 'bendy_sheet':
       self.hyper_sheet = HyperSheetMLP(
           self.hyper_metadata_dim, output_channels=cfg.hyper_num_dims,
           min_deg=cfg.hyper_sheet_min_deg, max_deg=cfg.hyper_sheet_max_deg,
@@ -318,27 +335,38 @@ class NerfDSModel(nn.Module):
 
   # -- the σ path -----------------------------------------------------------
 
-  def make_feat_fn(self, warp_in_embed, hyper_in_embed, extra_params, *,
-                   use_warp=True):
-    """p -> (trunk feature blocks, aux): the warp field, the hyper sheet and
-    the posencs, the part of the σ path before the NeRF trunk."""
+  def make_feat_fn(self, warp_in_embed, hyper_in_embed, hyper_embed,
+                   extra_params, *, use_warp=True):
+    """p -> (trunk feature blocks, aux): the warp field, the hyper
+    coordinates and the posencs, the part of the σ path before the NeRF
+    trunk. The rigid fields give a motion (``aux['screw']``) that the
+    normal transport reuses; the translation field gives none. The hyper
+    coordinates come from the bendy sheet, or in 'axis_aligned_plane'
+    slicing are the hyper embedding itself (``hyper_embed``, without the
+    mask channel)."""
     cfg = self.config
 
     def feat_fn(p):
       screw = None
-      if use_warp:
-        screw = self.warp_field.screw(
+      if use_warp and cfg.warp_field_type == 'translation':
+        warped_spatial = self.warp_field.warp(
+            p, warp_in_embed, extra_params['warp_alpha'],
+            self.cdtype_for('warp'), self.sdtype_for('warp'))
+      elif use_warp:
+        screw = self.warp_field.motion(
             p, warp_in_embed, extra_params['warp_alpha'],
             self.cdtype_for('warp'), self.sdtype_for('warp'))
         warped_spatial = rigid.transform_point(screw, p)
       else:
         warped_spatial = p
       hyper = None
-      if cfg.has_hyper:
+      if cfg.hyper_slice_method == 'bendy_sheet':
         hyper = self.hyper_sheet(p, hyper_in_embed,
                                  alpha=extra_params['hyper_sheet_alpha'],
                                  dtype=self.cdtype_for('hyper'),
                                  storage_dtype=self.sdtype_for('hyper'))
+      elif cfg.hyper_slice_method == 'axis_aligned_plane':
+        hyper = hyper_embed
       if hyper is not None and cfg.use_hyper_for_sigma:
         warped = torch.cat([warped_spatial, hyper], -1)
       else:
@@ -358,12 +386,12 @@ class NerfDSModel(nn.Module):
 
     return feat_fn
 
-  def make_sigma_fn(self, level, warp_in_embed, hyper_in_embed,
+  def make_sigma_fn(self, level, warp_in_embed, hyper_in_embed, hyper_embed,
                     extra_params, *, use_warp=True):
     """The pointwise-batched density function of ``[N, 3]`` points:
     p -> (σ_raw [N], aux with the trunk output, bottleneck and normal)."""
-    feat_fn = self.make_feat_fn(warp_in_embed, hyper_in_embed, extra_params,
-                                use_warp=use_warp)
+    feat_fn = self.make_feat_fn(warp_in_embed, hyper_in_embed, hyper_embed,
+                                extra_params, use_warp=use_warp)
     nerf = self.nerf[level]
 
     cdt = self.cdtype_for('trunk')
@@ -387,7 +415,7 @@ class NerfDSModel(nn.Module):
         has_bottleneck=self.has_condition)
 
   def _sigma_and_grad(self, level, pts, warp_in_embed, hyper_in_embed,
-                      extra_params, use_warp, mode=None):
+                      hyper_embed, extra_params, use_warp, mode=None):
     """σ_raw, aux and ∂σ/∂p for every point.
 
     In the caller's no-grad mode everything comes back detached. With grad
@@ -412,7 +440,8 @@ class NerfDSModel(nn.Module):
     nerf = self.nerf[level]
     if mode == 'fused':
       feat_fn = self.make_feat_fn(warp_in_embed, hyper_in_embed,
-                                  extra_params, use_warp=use_warp)
+                                  hyper_embed, extra_params,
+                                  use_warp=use_warp)
       with torch.enable_grad():
         parts, aux = feat_fn(p)
         feat = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
@@ -425,7 +454,8 @@ class NerfDSModel(nn.Module):
       sigma_raw = sigma_2d[..., 0]
     else:
       sigma_fn = self.make_sigma_fn(level, warp_in_embed, hyper_in_embed,
-                                    extra_params, use_warp=use_warp)
+                                    hyper_embed, extra_params,
+                                    use_warp=use_warp)
       with torch.enable_grad():
         sigma_raw, aux = sigma_fn(p)
         (grad_pts,) = torch.autograd.grad(sigma_raw.sum(), p,
@@ -443,10 +473,13 @@ class NerfDSModel(nn.Module):
                      use_sample_at_infinity=True, mask_ratio=1.0,
                      sharp_weights_std=1.0, return_full=False,
                      compute_sigma_gradient=None,
-                     use_norm_grad_topk=True) -> Tensors:
+                     use_norm_grad_topk=True,
+                     return_warp_jacobian=False) -> Tensors:
     """One level over ``points`` [R, S, 3]. ``use_norm_grad_topk=False``
     runs the exact ∇σ path even where ``norm_grad_topk`` is active, so that
-    ``target_norm`` comes back at every sample (the eval renderer)."""
+    ``target_norm`` comes back at every sample (the eval renderer).
+    ``return_warp_jacobian`` adds ``warp_jacobian`` [R, S, 3, 3], ∂warp/∂x
+    at the samples (the elastic loss's input)."""
     cfg = self.config
     num_rays, num_samples = points.shape[:2]
     n = num_rays * num_samples
@@ -520,17 +553,23 @@ class NerfDSModel(nn.Module):
       compute_sigma_gradient = False
     if compute_sigma_gradient:
       sigma_raw, aux, grad_pts = self._sigma_and_grad(
-          level, pts, warp_in_embed, hyper_in_embed, extra_params, use_warp)
+          level, pts, warp_in_embed, hyper_in_embed, hyper_embed,
+          extra_params, use_warp)
       if cfg.stop_target_norm_gradient:
         grad_pts = grad_pts.detach()
       sigma_gradient = math_ops.normalize(-grad_pts)
     else:
       sigma_raw, aux = self.make_sigma_fn(
-          level, warp_in_embed, hyper_in_embed, extra_params,
+          level, warp_in_embed, hyper_in_embed, hyper_embed, extra_params,
           use_warp=use_warp)(pts)
       sigma_gradient = None
     screw = aux['screw']
     norm = aux['norm']
+
+    if return_warp_jacobian and use_warp:
+      warp_jac = self.warp_field.warp_jacobian(pts, warp_in_embed,
+                                               extra_params['warp_alpha'])
+      out['warp_jacobian'] = warp_jac.reshape(num_rays, num_samples, 3, 3)
 
     # Normal input of the radiance branch: the predicted normal, rotated
     # back to the observation frame by the inverse of the same screw.
@@ -598,7 +637,9 @@ class NerfDSModel(nn.Module):
           gather_samples(warp_in_embed) if warp_in_embed is not None
           else None,
           gather_samples(hyper_in_embed) if hyper_in_embed is not None
-          else None, extra_params, use_warp, mode='vmap')
+          else None,
+          gather_samples(hyper_embed) if hyper_embed is not None else None,
+          extra_params, use_warp, mode='vmap')
       if cfg.stop_target_norm_gradient:
         grad_k = grad_k.detach()
       target_k = math_ops.normalize(-grad_k)
@@ -650,10 +691,25 @@ class NerfDSModel(nn.Module):
 
   # -- full forward ---------------------------------------------------------
 
-  def forward(self, rays: Dict[str, Any], extra_params, **kwargs):
-    """:meth:`render`, so ``torch.func.functional_call`` can run the model
-    on a parameter dict (``training/step.py``)."""
-    return self.render(rays, extra_params, **kwargs)
+  def forward(self, *args, method: str = 'render', **kwargs):
+    """:meth:`render`, or the method ``method`` names (``'apply_warp'``), so
+    that ``torch.func.functional_call`` can run either on a parameter dict
+    (``training/step.py``)."""
+    return getattr(self, method)(*args, **kwargs)
+
+  def apply_warp(self, points: torch.Tensor, warp_metadata: torch.Tensor,
+                 extra_params) -> torch.Tensor:
+    """Warps free-space points (the background loss): ``points`` [P, 3],
+    ``warp_metadata`` [P, 1] integer ids. The mask channel of the warp's
+    metadata is 0 there, as background."""
+    warp_embed = self.warp_embed.encode(warp_metadata)
+    if self.config.use_mask_in_warp:
+      warp_embed = torch.cat([warp_embed, torch.zeros_like(
+          warp_embed[..., :1])], -1)
+    return self.warp_field.warp(points, warp_embed,
+                                extra_params['warp_alpha'],
+                                self.cdtype_for('warp'),
+                                self.sdtype_for('warp'))
 
   def render(self, rays: Dict[str, Any], extra_params, *,
              generator: Optional[torch.Generator] = None, use_warp=True,
@@ -662,11 +718,15 @@ class NerfDSModel(nn.Module):
              use_sample_at_infinity=None, mask_ratio=1.0,
              sharp_weights_std=1.0, return_full=False,
              compute_sigma_gradient=None,
-             use_norm_grad_topk=True) -> Dict[str, Tensors]:
+             use_norm_grad_topk=True,
+             return_warp_jacobian=False) -> Dict[str, Tensors]:
     """Coarse and fine rendering of a ray batch. ``rays``: origins [R,3],
     directions [R,3], optional viewdirs [R,3], metadata (ids or
     ``encoded_*``), mask [R,1]. ``generator`` draws the stratified samples
-    and the σ noise, where the config asks for them."""
+    and the σ noise, where the config asks for them.
+    ``return_warp_jacobian``: True for every level, as the JAX package, or
+    the names of the levels that need it (the loss reads only the coarse
+    one, and eager PyTorch would compute an unread one all the same)."""
     cfg = self.config
     origins = rays['origins']
     directions = rays['directions']
@@ -684,13 +744,17 @@ class NerfDSModel(nn.Module):
                   compute_sigma_gradient=compute_sigma_gradient,
                   use_norm_grad_topk=use_norm_grad_topk)
 
+    jacobian_levels = (self.levels if return_warp_jacobian is True
+                       else return_warp_jacobian or ())
+
     z_vals, points = sampling.sample_along_rays(
         origins, directions, cfg.num_coarse_samples, near, far,
         cfg.use_stratified_sampling, cfg.use_linear_disparity, generator)
     coarse = self.render_samples(
         'coarse', points, z_vals, directions, viewdirs, metadata,
         extra_params, gt_mask,
-        use_sample_at_infinity=cfg.use_sample_at_infinity, **kwargs)
+        use_sample_at_infinity=cfg.use_sample_at_infinity,
+        return_warp_jacobian='coarse' in jacobian_levels, **kwargs)
     out = {'coarse': coarse}
     if cfg.num_fine_samples > 0:
       z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
@@ -701,7 +765,8 @@ class NerfDSModel(nn.Module):
       out['fine'] = self.render_samples(
           'fine', points, z_vals, directions, viewdirs, metadata,
           extra_params, gt_mask,
-          use_sample_at_infinity=use_sample_at_infinity, **kwargs)
+          use_sample_at_infinity=use_sample_at_infinity,
+          return_warp_jacobian='fine' in jacobian_levels, **kwargs)
     for level in out.values():
       if not return_weights:
         level.pop('weights', None)

@@ -1,8 +1,8 @@
 """Core math primitives (L0), counterpart of ``nerfds_tpu/ops/math.py``.
 
 Positional encoding with windowed annealing, safe normalisation, the safe
-norm with its zeroed gradient near 0, the robust and shrinkage losses, PSNR
-and gradient clipping. Shape-polymorphic over leading batch dims.
+norm with its zeroed gradient near 0, the robust and shrinkage losses, PSNR,
+the divergence and curl of a warp Jacobian, and gradient clipping. Shape-polymorphic over leading batch dims.
 """
 from __future__ import annotations
 
@@ -150,6 +150,20 @@ def shrinkage_loss(x: torch.Tensor, a: float = 10.0,
 def compute_psnr(mse: torch.Tensor) -> torch.Tensor:
   """PSNR from MSE for pixel values in [0, 1]."""
   return -10.0 * torch.log(mse) / math.log(10.0)
+
+
+def jacobian_to_curl(jacobian: torch.Tensor) -> torch.Tensor:
+  """Curl of a field from its ``[..., 3, 3]`` Jacobian,
+  J[..., i, j] = ∂f_i/∂x_j."""
+  j = jacobian
+  return torch.stack([j[..., 2, 1] - j[..., 1, 2],
+                      j[..., 0, 2] - j[..., 2, 0],
+                      j[..., 1, 0] - j[..., 0, 1]], dim=-1)
+
+
+def jacobian_to_div(jacobian: torch.Tensor) -> torch.Tensor:
+  """Divergence of the displacement x ↦ f(x) − x: trace(J) − 3."""
+  return jacobian.diagonal(dim1=-2, dim2=-1).sum(-1) - 3.0
 
 
 def clip_gradients(grads: Dict[str, torch.Tensor], grad_max_val: float = 0.0,

@@ -4,10 +4,13 @@ Closed Rodrigues forms over ``[..., 3]`` tensors (Modern Robotics eqns 3.51
 and 3.88):
   R x = x cosθ + (w × x) sinθ + w (w·x)(1 − cosθ)
   p   = θ v + (1 − cosθ)(w × v) + (θ − sinθ)(w (w·v) − v)
+
+The appliers take a :class:`Screw`, or any motion object with the same
+methods (``ops.dual_quaternion.DualQuatMotion``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -41,8 +44,10 @@ def _cross(a, b):
   return torch.linalg.cross(a, b, dim=-1)
 
 
-def rotate(screw: Screw, x: torch.Tensor) -> torch.Tensor:
+def rotate(screw, x: torch.Tensor) -> torch.Tensor:
   """Applies R = exp(θ[w]ₓ) to vectors x, Rodrigues form."""
+  if not isinstance(screw, Screw):
+    return screw.rotate(x)
   theta = screw.theta[..., None]
   cos, sin = torch.cos(theta), torch.sin(theta)
   w = screw.w
@@ -50,8 +55,10 @@ def rotate(screw: Screw, x: torch.Tensor) -> torch.Tensor:
           + w * (w * x).sum(-1, keepdim=True) * (1.0 - cos))
 
 
-def rotate_inverse(screw: Screw, x: torch.Tensor) -> torch.Tensor:
+def rotate_inverse(screw, x: torch.Tensor) -> torch.Tensor:
   """Applies Rᵀ to vectors x (rotation by −θ about the same axis)."""
+  if not isinstance(screw, Screw):
+    return screw.rotate_inverse(x)
   theta = screw.theta[..., None]
   cos, sin = torch.cos(theta), torch.sin(theta)
   w = screw.w
@@ -59,8 +66,10 @@ def rotate_inverse(screw: Screw, x: torch.Tensor) -> torch.Tensor:
           + w * (w * x).sum(-1, keepdim=True) * (1.0 - cos))
 
 
-def translation(screw: Screw) -> torch.Tensor:
+def translation(screw) -> torch.Tensor:
   """p = (θI + (1−cosθ)[w]ₓ + (θ−sinθ)[w]ₓ²) v."""
+  if not isinstance(screw, Screw):
+    return screw.translation_vec()
   theta = screw.theta[..., None]
   cos, sin = torch.cos(theta), torch.sin(theta)
   w, v = screw.w, screw.v
@@ -69,6 +78,33 @@ def translation(screw: Screw) -> torch.Tensor:
   return theta * v + (1.0 - cos) * wxv + (theta - sin) * wwv
 
 
-def transform_point(screw: Screw, x: torch.Tensor) -> torch.Tensor:
+def transform_point(screw, x: torch.Tensor) -> torch.Tensor:
   """Full SE(3) action R x + p."""
+  if not isinstance(screw, Screw):
+    return screw.transform_point(x)
   return rotate(screw, x) + translation(screw)
+
+
+def batched_jacobian(fn: Callable[..., torch.Tensor], points: torch.Tensor,
+                     *args) -> torch.Tensor:
+  """J[..., i, j] = ∂out_i/∂x_j of a pointwise-batched
+  ``fn(points, *args) -> [..., 3]``, as ``[..., 3, 3]``.
+
+  Three reverse passes, one for each basis cotangent eᵢ, give the rows;
+  JAX's counterpart pushes three basis tangents forward instead. Reverse
+  mode runs through every op of the warp fields, ``math._SafeNorm`` (which
+  has no forward-mode rule) included, and with grad mode on each pass keeps
+  its graph (``create_graph``), so a loss on J reaches the parameters: the
+  caller's backward then differentiates twice. ``points`` is taken as a
+  fresh leaf; ``args`` keep their graphs.
+  """
+  create_graph = torch.is_grad_enabled()
+  with torch.enable_grad():
+    p = points.detach().requires_grad_()
+    out = fn(p, *args)
+    rows = [torch.autograd.grad(out[..., i], p,
+                                grad_outputs=torch.ones_like(out[..., i]),
+                                retain_graph=True, create_graph=create_graph,
+                                materialize_grads=True)[0]
+            for i in range(3)]
+  return torch.stack(rows, dim=-2)

@@ -3,7 +3,9 @@
 Datasource -> ray store on the device -> the fused train step (the
 minibatch gathered on the device) -> stats, checkpoints and summaries in
 the experiment directory -> held-out evaluation (``eval_psnr``). The store
-is built once per ``Trainer`` and kept.
+is built once per ``Trainer`` and kept, and so are the background loss's
+static points (``load_points(shuffle=True)``), where the config asks for
+that loss and the source has them.
 
 With an ``exp_dir`` the trainer writes ``model_config.json`` and
 ``train_config.json`` there, restores the latest checkpoint of
@@ -131,6 +133,7 @@ class Trainer:
       self.ckpt = ckpt_lib.CheckpointManager(self.exp_dir / 'checkpoints')
       self.metrics_writer = MetricWriter(self.exp_dir / 'summaries')
     self._store: Optional[RayStore] = None
+    self._background_points: Optional[torch.Tensor] = None
 
   # -- setup ----------------------------------------------------------------
 
@@ -162,6 +165,18 @@ class Trainer:
           self.datasource.train_ids).to(self.model.device)
     return self._store
 
+  def background_points(self) -> Optional[torch.Tensor]:
+    """The source's static points on the model's device, loaded once when
+    ``use_background_loss`` is set; None otherwise or where the source has
+    none (training then runs without that loss)."""
+    if (self._background_points is None
+        and self.train_cfg.use_background_loss):
+      pts = self.datasource.load_points(shuffle=True)
+      if pts is not None:
+        self._background_points = torch.as_tensor(
+            np.asarray(pts, np.float32), device=self.model.device)
+    return self._background_points
+
   def init_state(self, seed: int = 0) -> TrainState:
     """Fresh parameters, initialised from ``seed``, and zero moments."""
     m = self.model
@@ -190,7 +205,8 @@ class Trainer:
       state = self.init_state(cfg.random_seed)
     if self.ckpt is not None:
       state, _ = self.ckpt.restore(state)
-    step_fn = make_fused_train_step(self.model, cfg, store)
+    step_fn = make_fused_train_step(self.model, cfg, store,
+                                    self.background_points())
 
     generator = torch.Generator(device=self.model.device)
     base_seed = (cfg.random_seed + 17) << 32

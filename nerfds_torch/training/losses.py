@@ -4,14 +4,14 @@ Stop-gradients sit where the JAX package puts them: the compositing
 weights are detached in every auxiliary loss, and the normal target is
 not, which makes training second order through the σ-gradient.
 
-The port covers every branch the ``nerf_ds`` flag set reaches: rgb,
-warp-reg, hyper-reg, the normal difference, back-facing, the 2D mask with
-its empty-space gate, the 3D mask and the occlusion term. The elastic and
-background losses raise ``NotImplementedError`` (ROADMAP.md, queue 1).
+The port covers every branch of the JAX package's losses but the bone
+field's background term: rgb, elastic (five residuals, two reductions),
+background, warp-reg, hyper-reg, the normal difference, back-facing, the 2D
+mask with its empty-space gate, the 3D mask and the occlusion term.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -47,15 +47,79 @@ def rgb_loss_fn(pred, target, use_shrinkage_loss: bool):
   return math_ops.l2_loss(err)
 
 
-def compute_elastic_loss(*args, **kwargs):
-  raise NotImplementedError(
-      'the elastic loss needs SE3Field.warp_jacobian, not ported yet; see '
-      'ROADMAP.md, queue 1')
+def compute_elastic_loss(jacobian: torch.Tensor, eps: float = 1e-6,
+                         loss_type: str = 'log_svals'
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Elastic regularisation of the warp Jacobian ``[..., 3, 3]``: (the
+  Geman-McClure loss of the squared residual, the residual), each
+  ``[...]``.
+
+  The singular values come from ``torch.linalg.svdvals``, whose gradient
+  stays finite where they repeat, as they do near the identity warp at
+  initialisation.
+  """
+  if loss_type == 'log_svals':
+    svals = torch.linalg.svdvals(jacobian)
+    sq_residual = (torch.log(torch.clamp(svals, min=eps)) ** 2).sum(-1)
+  elif loss_type == 'svals':
+    svals = torch.linalg.svdvals(jacobian)
+    sq_residual = ((svals - 1.0) ** 2).sum(-1)
+  elif loss_type == 'div':
+    sq_residual = math_ops.jacobian_to_div(jacobian) ** 2
+  elif loss_type == 'det':
+    sq_residual = (torch.linalg.det(jacobian) - 1.0) ** 2
+  elif loss_type == 'log_det':
+    sq_residual = torch.log(torch.clamp(torch.linalg.det(jacobian),
+                                        min=eps)) ** 2
+  else:
+    raise NotImplementedError(f'Unknown elastic loss type {loss_type!r}')
+  residual = torch.sqrt(sq_residual)
+  loss = math_ops.general_loss_with_squared_residual(
+      sq_residual, alpha=-2.0, scale=0.03)
+  return loss, residual
 
 
-def compute_background_loss(*args, **kwargs):
-  raise NotImplementedError(
-      'the background loss is not ported yet; see ROADMAP.md, queue 1')
+def draw_background(num_points: int, num_warp_embeds: int, noise_std: float,
+                    generator: Optional[torch.Generator], device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The background loss's draws: warp ids ``[P, 1]`` uniform over the
+  embeddings, and the points' Gaussian jitter ``[P, 3]``."""
+  metadata = torch.randint(0, num_warp_embeds, (num_points, 1),
+                           generator=generator, device=device)
+  noise = noise_std * torch.randn(num_points, 3, generator=generator,
+                                  device=device)
+  return metadata, noise
+
+
+def compute_background_loss(model, params: Tensors,
+                            points: torch.Tensor, extra_params,
+                            noise_std: float,
+                            generator: Optional[torch.Generator] = None,
+                            draws: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None,
+                            alpha: float = -2.0,
+                            scale: float = 0.001) -> torch.Tensor:
+  """Penalises motion of known-static points, ``[P]``: the robust loss of
+  ‖warp(x) − x‖² at the jittered points, one warp evaluation
+  (``model.apply_warp`` on ``params``) over all of them. ``draws`` = (warp
+  ids, jitter)
+  as :func:`draw_background` gives them; without them they are drawn from
+  ``generator``."""
+  if model.config.use_bone:
+    raise NotImplementedError(
+        "the bone field's background term (its moving mask) waits for "
+        'BoneSE3Field; see ROADMAP.md, queue 1')
+  if draws is None:
+    draws = draw_background(points.shape[0], model.num_warp_embeds,
+                            noise_std, generator, points.device)
+  metadata, point_noise = draws
+  points = points + point_noise
+  warped = torch.func.functional_call(
+      model, params, (points, metadata, extra_params),
+      {'method': 'apply_warp'})
+  sq_residual = ((warped - points) ** 2).sum(-1)
+  return math_ops.general_loss_with_squared_residual(
+      sq_residual, alpha=alpha, scale=scale)
 
 
 def compute_loss_and_stats(
@@ -77,7 +141,20 @@ def compute_loss_and_stats(
   loss = rgb_loss
 
   if use_elastic_loss:
-    compute_elastic_loss()
+    weights = model_out['weights'].detach()
+    jacobian = model_out['warp_jacobian']
+    if train_cfg.elastic_reduce_method == 'median':
+      depth_indices = rendering.compute_depth_index(weights)
+      jacobian = torch.gather(
+          jacobian, 1, depth_indices[:, None, None, None].expand(-1, 1, 3, 3))
+    elastic_loss, elastic_residual = compute_elastic_loss(
+        jacobian, loss_type=train_cfg.elastic_loss_type)
+    if train_cfg.elastic_reduce_method == 'weight':
+      elastic_loss = weights * elastic_loss
+    elastic_loss = elastic_loss.sum(-1).mean()
+    stats['loss/elastic'] = elastic_loss
+    stats['residual/elastic'] = elastic_residual.mean()
+    loss = loss + scalars['elastic_loss_weight'] * elastic_loss
 
   if train_cfg.use_warp_reg_loss:
     weights = model_out['weights'].detach()

@@ -15,7 +15,8 @@
 * The step is functional, as in the JAX package: it returns a new state
   and leaves the one it was given as it was.
 * ``make_fused_train_step`` gathers the minibatch on the device from a
-  device-resident ``RayStore`` inside the step.
+  device-resident ``RayStore`` inside the step, and the background loss's
+  points from a device-resident set of static points.
 """
 from __future__ import annotations
 
@@ -92,12 +93,16 @@ def _freeze_subtree_grads(grads: Params, prefix: str) -> Params:
 def make_loss_fn(model: NerfDSModel, train_cfg: TrainConfig
                  ) -> Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]:
   """loss_fn(params, batch, generator, scalars) -> (total, stats): the
-  coarse plus fine loss of the model run on ``params``."""
+  coarse plus fine loss of the model run on ``params``.
+
+  With ``use_elastic_loss`` the coarse level returns the warp's Jacobian,
+  which its elastic term reads (the step then differentiates twice through
+  the warp field). With ``use_background_loss`` and
+  ``batch['background_points']`` the background loss is added; its draws
+  come from ``generator`` after the render's, or from
+  ``batch['background_metadata']`` and ``batch['background_noise']`` where
+  the caller gives them. A batch without points trains without it."""
   model_cfg = model.config
-  if train_cfg.use_elastic_loss:
-    losses_lib.compute_elastic_loss()
-  if train_cfg.use_background_loss:
-    losses_lib.compute_background_loss()
 
   def loss_fn(params, batch, generator, scalars):
     extra_params = {k: scalars[k] for k in _EXTRA_PARAM_KEYS}
@@ -105,7 +110,9 @@ def make_loss_fn(model: NerfDSModel, train_cfg: TrainConfig
         model, params, (batch, extra_params),
         dict(generator=generator, return_points=True, return_weights=True,
              mask_ratio=scalars['mask_ratio'],
-             sharp_weights_std=scalars['sharp_weights_std']))
+             sharp_weights_std=scalars['sharp_weights_std'],
+             return_warp_jacobian=(('coarse',) if train_cfg.use_elastic_loss
+                                   else False)))
     total = 0.0
     stats: Dict[str, Any] = {}
     if 'fine' in out:
@@ -114,8 +121,20 @@ def make_loss_fn(model: NerfDSModel, train_cfg: TrainConfig
       total = total + fine_loss
     coarse_loss, stats['coarse'] = losses_lib.compute_loss_and_stats(
         model_cfg, train_cfg, out['coarse'], batch, scalars,
+        use_elastic_loss=train_cfg.use_elastic_loss,
         use_hyper_reg_loss=train_cfg.use_hyper_reg_loss)
     total = total + coarse_loss
+
+    if train_cfg.use_background_loss and 'background_points' in batch:
+      draws = None
+      if 'background_metadata' in batch:
+        draws = (batch['background_metadata'], batch['background_noise'])
+      background_loss = losses_lib.compute_background_loss(
+          model, params, batch['background_points'], extra_params,
+          noise_std=train_cfg.background_noise_std, generator=generator,
+          draws=draws).mean()
+      total = total + train_cfg.background_loss_weight * background_loss
+      stats['loss/background'] = background_loss
 
     if train_cfg.log_histograms:
       # Strided samples of the warped points, at most 2048, for histograms.
@@ -252,13 +271,34 @@ def make_fused_train_step(model: NerfDSModel, train_cfg: TrainConfig,
                           background_points: Optional[torch.Tensor] = None):
   """step(state, generator) -> (new state, stats), gathering a uniform
   minibatch of ``train_cfg.batch_size`` rays from the device-resident
-  ``store`` with ``generator`` (on the store's device) inside the step."""
-  if background_points is not None or train_cfg.use_background_loss:
-    losses_lib.compute_background_loss()
+  ``store`` with ``generator`` (on the store's device) inside the step.
+
+  With ``use_background_loss`` and ``background_points`` [P, 3] on the
+  store's device, each step also draws min(P,
+  ``background_points_batch_size``) of them, rounded down to a multiple of
+  ``accum_steps`` so that the microbatches split them evenly."""
   explicit = make_train_step(model, train_cfg)
+  n_bg = 0
+  if train_cfg.use_background_loss and background_points is not None:
+    accum = max(int(train_cfg.accum_steps), 1)
+    n_bg = min(background_points.shape[0],
+               train_cfg.background_points_batch_size)
+    n_bg -= n_bg % accum
+    if n_bg == 0:
+      # A mean over no points is NaN, which would reach every parameter.
+      raise ValueError(
+          f'{background_points.shape[0]} background points and '
+          f'background_points_batch_size='
+          f'{train_cfg.background_points_batch_size} leave no point for '
+          f'each of accum_steps={accum} microbatches')
 
   def step_fn(state: TrainState, generator: torch.Generator):
     batch = sample_batch(store, generator, train_cfg.batch_size)
+    if n_bg:
+      idx = torch.randint(0, background_points.shape[0], (n_bg,),
+                          generator=generator,
+                          device=background_points.device)
+      batch['background_points'] = background_points.index_select(0, idx)
     return explicit(state, batch, generator)
 
   return step_fn

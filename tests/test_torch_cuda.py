@@ -326,3 +326,95 @@ def test_fused_mlp_kernel_each_activation(cuda, act, compute_dtype):
   mlp = random_mlp(cuda, 7, 45, 3, 40, (0, 2), act, output_channels=3,
                    output_activation=None if act == 'none' else act)
   check_fused_mlp(cuda, mlp, 4099, seed=8, compute_dtype=compute_dtype)
+
+
+def config2_step(rays: str):
+  """BASELINE config[2] (hypernerf with the elastic, background and
+  hyper-reg losses; K2 compositing) at 32 + 32 samples, and a batch with
+  its background draws: 512 rays of the synthetic scene ('synthetic'), or
+  64 random rays from near the origin out to |x| = 2.1 ('random').
+  Returns grads(device, batch) and the batch."""
+  import dataclasses
+  from nerfds_torch import config as config_lib
+  from nerfds_torch.datasets import SyntheticDataSource
+  from nerfds_torch.models import NerfDSModel
+  from nerfds_torch.training import step as step_lib
+  source = SyntheticDataSource(num_frames=4, image_size=32, gt_samples=32)
+  rng = np.random.RandomState(1)
+  if rays == 'synthetic':
+    store = source.build_ray_store(source.train_ids)
+    idx = np.random.RandomState(0).choice(store.num_rays, 512, replace=False)
+    batch = {'origins': store.origins[idx],
+             'directions': store.directions[idx], 'rgb': store.rgb[idx],
+             'metadata': {'warp': store.metadata['warp'][idx]}}
+    near, far = source.near, source.far
+  else:
+    directions = rng.randn(64, 3).astype(np.float32)
+    directions /= np.linalg.norm(directions, axis=-1, keepdims=True)
+    batch = {'origins': rng.randn(64, 3).astype(np.float32) * 0.1,
+             'directions': directions,
+             'rgb': rng.rand(64, 3).astype(np.float32),
+             'metadata': {'warp': rng.randint(0, 4, (64, 1))}}
+    near, far = 0.2, 2.0
+  batch.update(background_points=source.load_points()[:256],
+               background_metadata=rng.randint(0, 4, (256, 1)),
+               background_noise=rng.randn(256, 3).astype(np.float32) * 1e-3)
+  model_cfg = dataclasses.replace(
+      config_lib.hypernerf(), num_coarse_samples=32, num_fine_samples=32,
+      use_stratified_sampling=False, use_pallas_compositing=True)
+  train_cfg = dataclasses.replace(
+      config_lib.TrainConfig(batch_size=len(batch['origins'])),
+      use_elastic_loss=True, use_background_loss=True,
+      background_loss_weight=1.0, use_hyper_reg_loss=True,
+      hyper_reg_loss_weight=0.001, warp_alpha_schedule=('constant', 4.0))
+  scalars = step_lib.eval_schedules(step_lib.build_schedules(train_cfg), 0)
+
+  def grads(device, batch):
+    model = NerfDSModel(model_cfg, num_warp_embeds=4, num_hyper_embeds=4,
+                        near=near, far=far, device=device)
+    to = lambda x: ({k: to(v) for k, v in x.items()} if isinstance(x, dict)
+                    else t(x).to(device))
+    g, stats = step_lib._grads(step_lib.make_loss_fn(model, train_cfg),
+                               dict(model.named_parameters()), to(batch),
+                               None, scalars)
+    assert {'loss/elastic', 'loss/hyper_reg'} <= set(stats['coarse'])
+    assert np.isfinite(float(stats['loss/background']))
+    return {k: v.cpu() for k, v in g.items()}
+
+  return grads, batch
+
+
+def worst_rel(got, want):
+  return max(float((got[k] - w).norm() / w.norm().clamp_min(1e-30))
+             for k, w in want.items())
+
+
+@pytest.mark.parametrize('rays', ['synthetic', 'random'])
+def test_config2_step_float32_floor(rays):
+  """The step's own float32 floor on the CPU: moving the ray origins by
+  one ulp moves the gradients by 5.5e-4 of a gradient's norm on the
+  synthetic scene's rays, and by 1.1e-3 on the random rays, where the
+  2^7·x posenc bands amplify the points' rounding and the gradients at
+  initialisation cancel. The card test below runs on the former, where
+  its 1e-3 resolves a real disagreement."""
+  grads, batch = config2_step(rays)
+  nudged = dict(batch, origins=np.nextafter(batch['origins'],
+                                            np.float32(np.inf)))
+  floor = worst_rel(grads('cpu', nudged), grads('cpu', batch))
+  if rays == 'synthetic':
+    assert floor < 7e-4, floor
+  else:
+    assert floor > 7e-4, floor
+
+
+@pytest.mark.cuda
+def test_config2_step_on_card_matches_cpu(cuda):
+  """One BASELINE config[2] step on the card (K2) against the same step
+  on the CPU (K2's plain version), from the same params, batch and
+  background draws, on the synthetic scene's rays (their float32 floor:
+  ``test_config2_step_float32_floor``)."""
+  grads, batch = config2_step('synthetic')
+  before = kernels.launch_counts['composite_fwd']
+  on_card = grads(cuda, batch)
+  assert kernels.launch_counts['composite_fwd'] == before + 2
+  assert worst_rel(on_card, grads('cpu', batch)) < 1e-3

@@ -187,7 +187,7 @@ def test_unsupported_features_raise():
                dict(norm_supervision_type='canonical'),
                dict(remat_feat=True), dict(sigma_gradient_mode='jvp'),
                dict(remat_sigma=True), dict(norm_type='layer'),
-               dict(warp_field_type='translation')):
+               dict(use_ref_radiance=True)):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
       TorchModel(small(tconfig.nerf_ds(), **flag), device='cpu')
 

@@ -13,6 +13,7 @@ the kernels' plain versions. The normal loss weight is run at the preset's
 the tolerance.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -420,6 +421,11 @@ def test_unported_options_raise():
       Trainer(model=model, train_cfg=train_cfg, datasource=source, **kwargs)
   with pytest.raises(NotImplementedError):
     tsynthetic.SyntheticDataSource(num_frames=4, gt_backend='jax')
-  for flag in ('use_elastic_loss', 'use_background_loss'):
+  # Model options still unported, and the bone field's background term.
+  for overrides in ({'use_bone': True}, {'norm_type': 'layer'}):
     with pytest.raises(NotImplementedError):
-      tstep.make_loss_fn(model, dataclasses.replace(train_cfg, **{flag: True}))
+      torch_model(**overrides)
+  bone = types.SimpleNamespace(config=dataclasses.replace(
+      model.config, use_bone=True), num_warp_embeds=NUM_EMBEDS)
+  with pytest.raises(NotImplementedError):
+    tlosses.compute_background_loss(bone, {}, torch.zeros(4, 3), {}, 0.0)
