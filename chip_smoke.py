@@ -169,15 +169,35 @@ def device_ms(torch, fn, n: int = 20, match: str = '', flush=None) -> float:
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    for _ in range(n):
-      if flush is not None:
-        flush.zero_()
-      fn()
-    torch.cuda.synchronize()
-  return sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and match in e.key) / 1e3 / n
+  # The profiler may record none of a window's kernels (seen once for K2
+  # at R = 512 after an L2 flush); such a window is profiled again.
+  for _ in range(3):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      for _ in range(n):
+        if flush is not None:
+          flush.zero_()
+        fn()
+      torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and match in e.key)
+    if total > 0:
+      return total / 1e3 / n
+    print(f'  (the profiler recorded no device time matching {match!r}; '
+          'profiling again)')
+  # Then CUDA events around each call, which also hold the wrapper's
+  # launch latency: an upper bound, said so in the output.
+  print(f'  (no profile of {match!r}: timed by CUDA events around each call)')
+  pairs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+  for start, end in pairs:
+    if flush is not None:
+      flush.zero_()
+    start.record()
+    fn()
+    end.record()
+  torch.cuda.synchronize()
+  return sum(start.elapsed_time(end) for start, end in pairs) / n
 
 
 def compare(torch, name, got, want, atol, rtol, max_bad_frac=0.0):
@@ -275,9 +295,11 @@ def phase_composite(torch, device):
               max_abs_err=max_err, library_ms=None, **main, shapes=shapes)
 
 
-def nerf_ds_trunk(torch, device, seed):
+def nerf_ds_trunk(torch, device, seed, norm_dim=3, has_bottleneck=True):
   """The full nerf_ds NeRF trunk (8x256, skip at 4, 52 input channels, a
-  σ + normal head and a bottleneck) with glorot-initialised weights."""
+  σ + normal head and a bottleneck) with glorot-initialised weights;
+  ``norm_dim=0`` gives the σ-only head of ``use_sigma_gradient`` without
+  ``predict_norm``, ``has_bottleneck=False`` the trunk of ``use_hyper_c``."""
   from nerfds_torch import config as config_lib
   from nerfds_torch.kernels import fused_trunk
   from nerfds_torch.models.mlp import NerfMLP
@@ -285,13 +307,14 @@ def nerf_ds_trunk(torch, device, seed):
   gen = torch.Generator().manual_seed(seed)
   in_dim = 52
   mlp = NerfMLP(in_dim=in_dim, alpha_cond_dim=0, rgb_cond_dim=0,
-                has_condition=True, trunk_depth=cfg.nerf_trunk_depth,
+                has_condition=has_bottleneck,
+                trunk_depth=cfg.nerf_trunk_depth,
                 trunk_width=cfg.nerf_trunk_width, skips=cfg.nerf_skips,
-                predict_norm=True, generator=gen).to(device)
+                predict_norm=norm_dim > 0, generator=gen).to(device)
   spec = fused_trunk.TrunkSpec(
       depth=cfg.nerf_trunk_depth, width=cfg.nerf_trunk_width,
       skips=tuple(cfg.nerf_skips), in_dim=in_dim, alpha_channels=1,
-      norm_dim=3, has_bottleneck=True)
+      norm_dim=norm_dim, has_bottleneck=has_bottleneck)
   return spec, mlp.trunk_weights()
 
 
@@ -307,13 +330,17 @@ def trunk_flops(spec) -> int:
   return 2 * (fwd + rev)
 
 
+def trunk_weight_count(weights) -> int:
+  """Floats of the trunk's, the head's and the bottleneck's weights."""
+  return sum(w.numel() + b.numel() for w, b in weights.layers) + sum(
+      t.numel() for t in (*weights.head, *(weights.bottleneck or ())))
+
+
 def trunk_fwd_bound(spec, weights, n: int):
   """(ms, what bounds it) of K1f on N rows: its operations at f32 peak, or
   feat, the weights and the five outputs moved once."""
   flops = n * trunk_flops(spec)
-  n_weights = sum(w.numel() + b.numel() for w, b in weights.layers) + \
-      sum(t.numel() for t in (*weights.head, *weights.bottleneck))
-  nbytes = 4 * (n * spec.in_dim + n_weights + n * (
+  nbytes = 4 * (n * spec.in_dim + trunk_weight_count(weights) + n * (
       1 + spec.norm_dim + 2 * spec.width + spec.in_dim))
   t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
   print(f'  K1f bound at N={n}: {flops / 1e12:.4f} TFLOP, '
@@ -523,14 +550,90 @@ def trunk_bwd_bound(spec, weights, n: int):
   cotangents in, feat_bar out, the weights read and their grads
   written)."""
   flops = n * trunk_bwd_flops(spec)
-  n_weights = sum(w.numel() + b.numel() for w, b in weights.layers) + \
-      sum(t.numel() for t in (*weights.head, *weights.bottleneck))
-  nbytes = 4 * (n * (2 * spec.in_dim + 1 + spec.norm_dim + 2 * spec.width
-                     + spec.in_dim) + 2 * n_weights)
+  # B̄ is read only where there is a bottleneck.
+  cots = 1 + spec.norm_dim + (2 if spec.has_bottleneck else 1) * spec.width
+  nbytes = 4 * (n * (2 * spec.in_dim + cots + spec.in_dim)
+                + 2 * trunk_weight_count(weights))
   t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
   return (1e3 * max(t_ops, t_bytes),
           'operations' if t_ops >= t_bytes else 'bytes', flops / 1e12,
           nbytes / 1e6)
+
+
+def check_trunk_bwd(torch, device, spec, weights, n: int):
+  """K1b against its plain version on N rows of random feat and
+  cotangents: two launches must agree bit for bit; every feat_bar row
+  beyond tolerance must be a relu kink row (``check_kink_rows``), none at a
+  ragged N and none in the last block of the sweep; with those rows'
+  cotangents zeroed every output within 1e-5 of its norm. Returns (max abs
+  error, feat, the cotangents with the kink rows zeroed)."""
+  from nerfds_torch.kernels import fused_trunk
+  tile_rows = fused_trunk.KERNEL_TILE_ROWS
+  flat_names = [f'{k}{i}' for i in range(spec.depth) for k in ('dW', 'db')]
+  if spec.has_bottleneck:
+    flat_names += ['bottleneck_dW', 'bottleneck_db']
+  flat_names += ['head_dW', 'head_db']
+  gen = torch.Generator(device=device).manual_seed(n + 1)
+  feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
+  cots = tuple(torch.randn(n, c, generator=gen, device=device)
+               for c in (1, spec.norm_dim, spec.width, spec.width,
+                         spec.in_dim))
+  got_x, got_w = fused_trunk.trunk_sigma_grad_backward(
+      feat, weights, spec, cots)
+  again_x, again_w = fused_trunk.trunk_sigma_grad_backward(
+      feat, weights, spec, cots)
+  want_x, want_w = fused_trunk.trunk_sigma_grad_backward_reference(
+      feat, weights, spec, cots)
+  torch.cuda.synchronize()
+  got = [got_x, *fused_trunk._flatten(got_w)]
+  again = [again_x, *fused_trunk._flatten(again_w)]
+  same = all(torch.equal(a, b) for a, b in zip(got, again))
+  print(f' N={n}: repeat launch bit-identical: {same}')
+  if not same:
+    raise AssertionError('K1b: two launches on the same inputs differ')
+  # Rows at relu kinks: each feat_bar row beyond tolerance must be
+  # proven by fused_trunk.kink_flip, at most 1e-3 of N
+  # (fused_trunk.check_kink_rows); here also none at a ragged N and
+  # none in the last block of the sweep (KERNEL_TILE_ROWS rows). With
+  # their cotangents zeroed they add nothing to any output, and then
+  # everything must agree tightly.
+  err = (got_x - want_x).abs()
+  bad, rows, flips = fused_trunk.check_kink_rows(feat, weights, spec,
+                                                 cots, got_x, want_x)
+  last_block = (n - 1) // tile_rows * tile_rows
+  print(f'  feat_bar: max_abs_err {err.max().item():.3e}; rows beyond '
+        f'tolerance {len(rows)} of {n}: {rows[:12]}; |a| of the relu '
+        f'flipped there: {flips[:12]}')
+  max_err = err.max().item()
+  if (rows and n % tile_rows) or any(r >= last_block for r in rows):
+    raise AssertionError(f'K1b feat_bar: rows {rows} beyond tolerance')
+  rel_all = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+             for g, w in zip(got[1:], fused_trunk._flatten(want_w))]
+  print(f'  worst grad |got - want| / |want| with those rows: '
+        f'{max(rel_all):.3e}')
+  keep = (~bad).float()[:, None]
+  cots = tuple(c * keep for c in cots)
+  got_x, got_w = fused_trunk.trunk_sigma_grad_backward(
+      feat, weights, spec, cots)
+  want_x, want_w = fused_trunk.trunk_sigma_grad_backward_reference(
+      feat, weights, spec, cots)
+  got = [got_x, *fused_trunk._flatten(got_w)]
+  want = [want_x, *fused_trunk._flatten(want_w)]
+  worst = 0.0
+  for name, g, w in zip(['feat_bar', *flat_names], got, want):
+    if not bool(torch.isfinite(g).all()):
+      raise AssertionError(f'K1b {name}: non-finite values')
+    rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+    worst = max(worst, rel)
+    max_err = max(max_err, (g - w).abs().max().item())
+    # Tolerance relative to the tensor's norm: float32 sums over N rows
+    # in another order than cuBLAS.
+    if rel > 1e-5:
+      raise AssertionError(f'K1b {name}: |got - want| / |want| = '
+                           f'{rel:.2e} > 1e-5 without the kink rows')
+  print(f'  without them, worst |got - want| / |want| over feat_bar '
+        f'and {len(flat_names)} grads: {worst:.3e}')
+  return max_err, feat, cots
 
 
 def phase_fused_trunk_bwd(torch, device):
@@ -540,73 +643,11 @@ def phase_fused_trunk_bwd(torch, device):
   from nerfds_torch.kernels import fused_trunk
   print('== K1b fused_trunk_bwd vs plain version')
   spec, weights = nerf_ds_trunk(torch, device, seed=2)
-  tile_rows = fused_trunk.KERNEL_TILE_ROWS
-  flat_names = [f'{k}{i}' for i in range(spec.depth) for k in ('dW', 'db')]
-  flat_names += ['bottleneck_dW', 'bottleneck_db', 'head_dW', 'head_db']
   max_err, main, train = 0.0, None, {}
   with torch.no_grad():
     for n in K1B_SIZES:
-      gen = torch.Generator(device=device).manual_seed(n + 1)
-      feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
-      cots = tuple(torch.randn(n, c, generator=gen, device=device)
-                   for c in (1, spec.norm_dim, spec.width, spec.width,
-                             spec.in_dim))
-      got_x, got_w = fused_trunk.trunk_sigma_grad_backward(
-          feat, weights, spec, cots)
-      again_x, again_w = fused_trunk.trunk_sigma_grad_backward(
-          feat, weights, spec, cots)
-      want_x, want_w = fused_trunk.trunk_sigma_grad_backward_reference(
-          feat, weights, spec, cots)
-      torch.cuda.synchronize()
-      got = [got_x, *fused_trunk._flatten(got_w)]
-      again = [again_x, *fused_trunk._flatten(again_w)]
-      same = all(torch.equal(a, b) for a, b in zip(got, again))
-      print(f' N={n}: repeat launch bit-identical: {same}')
-      if not same:
-        raise AssertionError('K1b: two launches on the same inputs differ')
-      # Rows at relu kinks: each feat_bar row beyond tolerance must be
-      # proven by fused_trunk.kink_flip, at most 1e-3 of N
-      # (fused_trunk.check_kink_rows); here also none at a ragged N and
-      # none in the last block of the sweep (KERNEL_TILE_ROWS rows). With
-      # their cotangents zeroed they add nothing to any output, and then
-      # everything must agree tightly.
-      err = (got_x - want_x).abs()
-      bad, rows, flips = fused_trunk.check_kink_rows(feat, weights, spec,
-                                                     cots, got_x, want_x)
-      last_block = (n - 1) // tile_rows * tile_rows
-      print(f'  feat_bar: max_abs_err {err.max().item():.3e}; rows beyond '
-            f'tolerance {len(rows)} of {n}: {rows[:12]}; |a| of the relu '
-            f'flipped there: {flips[:12]}')
-      max_err = max(max_err, err.max().item())
-      if (rows and n % tile_rows) or any(r >= last_block for r in rows):
-        raise AssertionError(f'K1b feat_bar: rows {rows} beyond tolerance')
-      rel_all = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
-                 for g, w in zip(got[1:], fused_trunk._flatten(want_w))]
-      print(f'  worst grad |got - want| / |want| with those rows: '
-            f'{max(rel_all):.3e}')
-      keep = (~bad).float()[:, None]
-      cots = tuple(c * keep for c in cots)
-      got_x, got_w = fused_trunk.trunk_sigma_grad_backward(
-          feat, weights, spec, cots)
-      want_x, want_w = fused_trunk.trunk_sigma_grad_backward_reference(
-          feat, weights, spec, cots)
-      got = [got_x, *fused_trunk._flatten(got_w)]
-      want = [want_x, *fused_trunk._flatten(want_w)]
-      worst = 0.0
-      for name, g, w in zip(['feat_bar', *flat_names], got, want):
-        if not bool(torch.isfinite(g).all()):
-          raise AssertionError(f'K1b {name}: non-finite values')
-        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
-        worst = max(worst, rel)
-        max_err = max(max_err, (g - w).abs().max().item())
-        # Tolerance relative to the tensor's norm: float32 sums over N rows
-        # in another order than cuBLAS.
-        if rel > 1e-5:
-          raise AssertionError(f'K1b {name}: |got - want| / |want| = '
-                               f'{rel:.2e} > 1e-5 without the kink rows')
-      print(f'  without them, worst |got - want| / |want| over feat_bar '
-            f'and {len(flat_names)} grads: {worst:.3e}')
-      del got, again, want, got_w, again_w, want_w, err, bad
+      err, feat, cots = check_trunk_bwd(torch, device, spec, weights, n)
+      max_err = max(max_err, err)
       if n in (TRAIN_BATCH * 64, TRAIN_BATCH * 128):  # coarse, fine rows
         ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
             feat, weights, spec, cots), 3, warmup=1)
@@ -1753,6 +1794,281 @@ def phase_deformation(torch, device, trainer):
   return launches, out
 
 
+# Phase 12: the radiance branch's variants of nerf_ds(), their steps, the
+# train CLI's steps, K1's new head shapes (norm_dim, has_bottleneck) and
+# the rows they are checked at (a training level's and a ragged N).
+RADIANCE_STEPS = 12
+RADIANCE_HEADS = ((0, True), (3, False))
+RADIANCE_K1_SIZES = (TRAIN_BATCH * 128, 4099)
+SIGMA_NORMALS = dict(predict_norm=False, use_predicted_norm=False,
+                     use_sigma_gradient=True, stop_norm_gradient=False,
+                     use_ref_radiance=True)
+HYPER_C_CANONICAL = dict(use_hyper_c=True, hyper_c_hyper_input=True,
+                         use_ref_radiance=True,
+                         norm_supervision_type='canonical')
+DIRECT_CONDITIONS = dict(
+    norm_supervision_type='direct', screw_input_mode='full',
+    window_x_in_rgb_condition=True, use_delta_x_in_rgb_condition=True,
+    use_hyper_for_rgb=True, use_mask_in_rgb=True,
+    use_coarse_depth_for_mask=True, clamp_predicted_mask=True,
+    use_mask_sharp_weights=False, use_mask_scaled_weights=True)
+
+
+def float32_floor(torch, device, plain, train_cfg, state, batch, scalars):
+  """Per tensor, |g' − g| / |g| of the plain path's gradients g on
+  ``state`` and ``batch`` (train_mode's draws), g' with the rays' origins
+  moved by one ulp: the step's own float32 sensitivity. Where ∇σ feeds the
+  colour it is large: normalize(∇σ) multiplies rounding by 1/|∇σ|, and
+  |∇σ| is small wherever the density is nearly flat."""
+  from nerfds_torch.training import step as step_lib
+  gen = lambda: torch.Generator(device=device).manual_seed(321)
+  loss_fn = step_lib.make_loss_fn(plain, train_cfg)
+  want, _ = step_lib._grads(loss_fn, state.params, batch, gen(), scalars)
+  origins = batch['origins']
+  nudged = dict(batch, origins=torch.nextafter(
+      origins, torch.full_like(origins, float('inf'))))
+  moved, _ = step_lib._grads(loss_fn, state.params, nudged, gen(), scalars)
+  return {k: ((moved[k] - w).norm() / w.norm().clamp_min(1e-30)).item()
+          for k, w in want.items()}
+
+
+def check_grads(name, rels, floor):
+  """Every gradient within 1e-3 of the plain path's, relative to its norm
+  (phase 7's tolerance), or, where the step's own float32 floor (worst
+  tensor) exceeds half of that, within twice the floor. Returns the
+  bound."""
+  import numpy as np
+  bound = max(1e-3, 2 * max(floor.values()))
+  worst = max(rels, key=rels.get)
+  print(f'  {name}: float32 floor (origins moved one ulp) worst '
+        f'{max(floor.values()):.3e}, median '
+        f'{float(np.median(list(floor.values()))):.3e}; bound {bound:.3e}; '
+        f'kernel vs plain worst {rels[worst]:.3e} ({worst})')
+  if rels[worst] > bound:
+    raise AssertionError(f'{name} gradients: {rels[worst]:.2e} > {bound:.2e}')
+  return bound
+
+
+def phase_trunk_heads(torch, device):
+  """Phase 12, first part: K1f and K1b at the two head shapes that the
+  radiance variants give K1, a one-column head (σ only, ``norm_dim`` 0)
+  with a bottleneck and a σ + normal head without one, against their plain
+  versions at a training level's rows and a ragged N, by the rules of
+  phases 3 and 5; each timed beside its bound at the training rows.
+  Returns {'fwd': {...}, 'bwd': {...}} keyed by head."""
+  from nerfds_torch.kernels import fused_trunk
+  names = ('sigma', 'normal', 'trunk_out', 'bottleneck', 'g')
+  out = {'fwd': {}, 'bwd': {}}
+  for norm_dim, has_bn in RADIANCE_HEADS:
+    head = f'norm{norm_dim}_bottleneck{int(has_bn)}'
+    print(f'== K1f and K1b at norm_dim={norm_dim}, has_bottleneck={has_bn}')
+    spec, weights = nerf_ds_trunk(torch, device, seed=12 + norm_dim,
+                                  norm_dim=norm_dim, has_bottleneck=has_bn)
+    fwd_err, bwd_err = 0.0, 0.0
+    with torch.no_grad():
+      for n in RADIANCE_K1_SIZES:
+        gen = torch.Generator(device=device).manual_seed(n + norm_dim)
+        feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
+        got = fused_trunk.trunk_sigma_grad(feat, weights, spec)
+        want = fused_trunk.trunk_sigma_grad_reference(feat, weights, spec)
+        torch.cuda.synchronize()
+        print(f' K1f N={n}')
+        if (got[1] is None) != (norm_dim == 0):
+          raise AssertionError(f'K1f {head}: normal output {got[1]}')
+        for name, g, w in zip(names, got, want):
+          # Tolerance and the share of g's kink elements as in phase 3.
+          fwd_err = max(fwd_err, compare(torch, name, g, w, 1e-4, 1e-4,
+                                         1e-3 if name == 'g' else 0.0))
+        del got, want
+        if n == RADIANCE_K1_SIZES[0]:
+          ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad(
+              feat, weights, spec), 3, warmup=1)
+          plain_ms = time_ms(
+              torch, lambda: fused_trunk.trunk_sigma_grad_reference(
+                  feat, weights, spec), 3, warmup=1)
+          bound_ms, bound_by = trunk_fwd_bound(spec, weights, n)
+          print(f'  K1f time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+                f'bound {bound_ms:.3f} ms ({bound_by}): {bound_ms / ms:.1%} '
+                'of the bound')
+          out['fwd'][head] = dict(n=n, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+        del feat
+        print(f' K1b N={n}')
+        err, feat, cots = check_trunk_bwd(torch, device, spec, weights, n)
+        bwd_err = max(bwd_err, err)
+        if n == RADIANCE_K1_SIZES[0]:
+          ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
+              feat, weights, spec, cots), 3, warmup=1)
+          plain_ms = time_ms(
+              torch, lambda: fused_trunk.trunk_sigma_grad_backward_reference(
+                  feat, weights, spec, cots), 3, warmup=1)
+          bound_ms, bound_by, tflop, mbytes = trunk_bwd_bound(spec, weights,
+                                                              n)
+          print(f'  K1b time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+                f'bound {bound_ms:.3f} ms ({tflop:.4f} TFLOP, {mbytes:.1f} '
+                f'MB): {bound_ms / ms:.1%} of the bound')
+          out['bwd'][head] = dict(n=n, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+        del feat, cots
+    out['fwd'][head]['max_abs_err'] = fwd_err
+    out['bwd'][head]['max_abs_err'] = bwd_err
+  return out
+
+
+def phase_radiance(torch, device, trainer, train):
+  """Phase 12: the radiance branch's variants of nerf_ds() at full width,
+  batch 512, on the train phase's synthetic store: (a) ∇σ as the colour's
+  normal with the reflected view direction (K1 with a σ-only head), (b)
+  hyper-c with the reflection and the 'canonical' normal target (K1
+  without a bottleneck), (c) the 'direct' target with the screw, window,
+  Δx, hyper and mask conditions and the mask flags; each 12 steps on the
+  kernel path (K1f, K1b and K2 twice a step), its gradients against the
+  plain path's ('vmap', plain compositing) on one state and batch, its
+  steady step on both paths in turns and its host waits a step beside
+  phase 7's. (d) The ∇σ modes 'jvp', 'vjp' and 'naive', one step each
+  (K2 only), gradients against 'vmap'. (e) The train CLI with (a)'s
+  overrides."""
+  import dataclasses
+  import tempfile
+  from pathlib import Path
+  import numpy as np
+  from nerfds_torch import config as config_lib
+  from nerfds_torch import kernels
+  from nerfds_torch import train as train_cli
+  from nerfds_torch.training import step as step_lib
+  print('== radiance variants of nerf_ds() at full width, batch '
+        f'{TRAIN_BATCH}: (a) sigma_normals, (b) hyper_c_canonical, (c) '
+        "direct_conditions, 'fused' ∇σ and K2; (d) the ∇σ modes jvp, vjp, "
+        'naive; (e) the train CLI')
+  out, launches = {}, {}
+  # The preset's schedules compressed to the run (as --scale_schedules
+  # does): the normal input's and the window's posenc open within a few
+  # steps, so the colour reads ∇σ, the reflection and the points.
+  train_cfg = dataclasses.replace(
+      config_lib.nerf_ds_train_config(max_steps=TRAIN_STEPS,
+                                      batch_size=TRAIN_BATCH,
+                                      scale_schedules=True), print_every=1)
+  variants = (('sigma_normals', SIGMA_NORMALS),
+              ('hyper_c_canonical', HYPER_C_CANONICAL),
+              ('direct_conditions', DIRECT_CONDITIONS))
+  for name, flags in variants:
+    cfg = dataclasses.replace(config_lib.nerf_ds(), **flags,
+                              sigma_gradient_mode='fused',
+                              use_pallas_compositing=True)
+    plain_cfg = dataclasses.replace(cfg, sigma_gradient_mode='vmap',
+                                    use_pallas_compositing=False)
+    launches[name], out[name], rels, (state, batch, scalars, run) = (
+        train_mode(torch, device, trainer, name, cfg, plain_cfg=plain_cfg,
+                   train_cfg=train_cfg, steps=RADIANCE_STEPS,
+                   stat_keys=(('fine', 'loss/rgb'), ('coarse', 'loss/rgb')),
+                   fused_trunk_fwd=2, fused_trunk_bwd=2, composite_fwd=2))
+    plain = type(run.model)(plain_cfg,
+                            num_warp_embeds=run.model.num_warp_embeds,
+                            num_hyper_embeds=run.model.num_hyper_embeds,
+                            near=run.model.near, far=run.model.far,
+                            device=device)
+    # Tolerance as in phase 7 (float32, relu kinks may fall on the other
+    # side, K2 sums in another order than torch.cumprod), or the step's
+    # own float32 floor where that is larger.
+    floor = float32_floor(torch, device, plain, train_cfg, state, batch,
+                          scalars)
+    out[name]['grad_floor_worst'] = max(floor.values())
+    out[name]['grad_bound'] = check_grads(name, rels, floor)
+    del batch
+    # Steady steps of both paths in turns, then the host's waits.
+    store = trainer.build_store()
+    steps_fn = {
+        'kernel': step_lib.make_fused_train_step(run.model, train_cfg, store),
+        'plain': step_lib.make_fused_train_step(plain, train_cfg, store)}
+    times = {'kernel': [], 'plain': []}
+    for path in ('kernel', 'plain', 'plain', 'kernel'):
+      times[path].append(steady_step_s(torch, device, steps_fn[path], state))
+    for path in ('kernel', 'plain'):
+      out[name][f'{path}_step_ms'] = 1e3 * float(np.mean(times[path]))
+    # One step of each path profiled (device busy time, ops, idle share),
+    # then the kernel path's host waits.
+    for path in ('plain', 'kernel'):
+      g = torch.Generator(device=device)
+      g.manual_seed(70_000)
+      box = [steps_fn[path](state, g)[0]]
+
+      def one_step(g=g, box=box, step_fn=steps_fn[path]):
+        box[0] = step_fn(box[0], g)[0]
+
+      stats = {}
+      profile_device(torch, one_step, f'{name} {path}-path training step',
+                     stats=stats)
+      out[name].update({f'{path}_{k}': v for k, v in stats.items()})
+    syncs = host_syncs(torch, one_step)
+    out[name]['host_syncs'] = sum(syncs.values())
+    print(f'  {name} steady step: kernel path {out[name]["kernel_step_ms"]:.1f}'
+          f' ms ({", ".join(f"{1e3 * x:.1f}" for x in times["kernel"])}), '
+          f'plain path {out[name]["plain_step_ms"]:.1f} ms ('
+          f'{", ".join(f"{1e3 * x:.1f}" for x in times["plain"])}); host '
+          f'syncs a step {sum(syncs.values())} at {syncs}; phase 7 '
+          f'(nerf_ds()): kernel {train["kernel"]["step_ms"]:.1f} ms, plain '
+          f'{train["plain"]["step_ms"]:.1f} ms, host syncs a step '
+          f'{train["kernel"]["host_syncs"]}')
+    del state, run, plain, steps_fn, box, store
+  # (d) The other ∇σ modes of nerf_ds(): plain PyTorch on every device, as
+  # in JAX, where only 'fused' reaches a kernel. One step each, gradients
+  # against 'vmap' on the state it reached.
+  for mode in ('jvp', 'vjp', 'naive'):
+    cfg = dataclasses.replace(config_lib.nerf_ds(), sigma_gradient_mode=mode,
+                              use_pallas_compositing=True)
+    vmap_cfg = dataclasses.replace(cfg, sigma_gradient_mode='vmap')
+    launches[mode], out[mode], rels, (state, batch, scalars, run) = (
+        train_mode(torch, device, trainer, f"'{mode}' ∇σ", cfg,
+                   plain_cfg=vmap_cfg, train_cfg=train_cfg, steps=1,
+                   composite_fwd=2))
+    vmap = type(run.model)(vmap_cfg, num_warp_embeds=run.model.num_warp_embeds,
+                           num_hyper_embeds=run.model.num_hyper_embeds,
+                           near=run.model.near, far=run.model.far,
+                           device=device)
+    floor = float32_floor(torch, device, vmap, train_cfg, state, batch,
+                          scalars)
+    out[mode]['grad_floor_worst'] = max(floor.values())
+    out[mode]['grad_bound'] = check_grads(f"'{mode}' against 'vmap'", rels,
+                                          floor)
+    del state, batch, run, vmap
+  # (e) The train CLI with (a)'s overrides, 'fused' and K2. Its closing
+  # eval renders with ∇σ too, since (a)'s colour reads it. The preset's
+  # schedules, but the normal input's posenc window open from the start
+  # (--scale_schedules makes the sharpening schedule NaN at step 0 of a
+  # run shorter than about 20 steps, in both packages).
+  overrides = [f'model.{k}={v}' for k, v in SIGMA_NORMALS.items()] + [
+      'model.sigma_gradient_mode=fused', 'model.use_pallas_compositing=True',
+      "train.norm_input_alpha_schedule=('constant', 4.0)"]
+  with tempfile.TemporaryDirectory() as tmp:
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    state, metrics, _ = train_cli.main([
+        '--preset', 'nerf_ds', '--datasource', 'synthetic', '--exp_dir', tmp,
+        '--batch_size', str(TRAIN_BATCH), '--max_steps', str(CLI_STEPS),
+        *(a for kv in overrides for a in ('--set', kv))])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    cli = dict(kernels.launch_counts)
+    logged = [json.loads(x) for x in (
+        Path(tmp) / 'summaries' / 'metrics.jsonl').read_text().splitlines()]
+  rgb = [x.get('train/fine/loss/rgb') for x in logged]
+  print(f'  train CLI --preset nerf_ds with (a)\'s overrides: {CLI_STEPS} '
+        f'steps and its closing eval in {seconds:.1f} s, launches {cli}, val '
+        f'psnr {metrics["psnr"]:.2f}, logged fine loss/rgb {rgb}')
+  if (state.step != CLI_STEPS or not np.isfinite(metrics['psnr'])
+      or not logged or not all(np.isfinite(x if x is not None else np.nan)
+                               for x in rgb)
+      or cli['fused_trunk_bwd'] != 2 * CLI_STEPS
+      or cli['fused_trunk_fwd'] < 2 * CLI_STEPS
+      or cli['composite_fwd'] < 2 * CLI_STEPS or cli['composite_fwd'] % 2
+      or sum(cli.values()) != (cli['composite_fwd'] + cli['fused_trunk_fwd']
+                               + cli['fused_trunk_bwd'])):
+    raise AssertionError(f'train CLI sigma_normals: step {state.step}, '
+                         f'launches {cli}, metrics {metrics}, logged {logged}')
+  out['cli'] = dict(seconds=seconds, launches=cli, psnr=metrics['psnr'])
+  return launches, out
+
+
 def check_launches(name, launches, **want):
   """``launches`` must hold the counts in ``want``, and 0 for every other
   kernel."""
@@ -1788,10 +2104,11 @@ def host_syncs(torch, fn):
       if 'synchroniz' in str(w.message)))
 
 
-def profile_device(torch, fn, name, n=2, top=8):
+def profile_device(torch, fn, name, n=2, top=8, stats=None):
   """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler), and
   the device's idle share of their wall time with the profiler on; returns
-  {kernel or copy name: device ms a call}."""
+  {kernel or copy name: device ms a call}. ``stats``, a dict, receives the
+  wall and busy ms, the idle share and the device ops of a call."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
@@ -1811,6 +2128,10 @@ def profile_device(torch, fn, name, n=2, top=8):
         f'device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}'
         f', {sum(e.count for e in events) // n} device ops a call; by device '
         'time:')
+  if stats is not None:
+    stats.update(wall_ms=wall_ms, busy_ms=busy_ms,
+                 idle_share=1 - busy_ms / wall_ms,
+                 device_ops=sum(e.count for e in events) // n)
   for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
     print(f'    {e.self_device_time_total / 1e3 / n:8.3f} ms {e.count // n:5d}x '
           f'{e.key[:80]}')
@@ -1867,6 +2188,12 @@ def main() -> int:
   results += bf16_results
   deformation_launches, deformation = phase_deformation(torch, device,
                                                         trainer)
+  heads = phase_trunk_heads(torch, device)
+  results[1]['heads'], results[2]['heads'] = heads['fwd'], heads['bwd']
+  radiance_launches, radiance = phase_radiance(torch, device, trainer, train)
+  for r in results:
+    r['launches_radiance'] = {mode: counts[r['name']]
+                              for mode, counts in radiance_launches.items()}
   for r in results:
     r['launches_speed_modes'] = {mode: counts[r['name']]
                                  for mode, counts in speed_launches.items()}
@@ -1882,6 +2209,7 @@ def main() -> int:
   print('capture: ' + json.dumps(capture))
   print('speed modes: ' + json.dumps(speed))
   print('deformation: ' + json.dumps(deformation))
+  print('radiance: ' + json.dumps(radiance))
   print(f'card: {card_line()}')
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

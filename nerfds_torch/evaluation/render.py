@@ -44,6 +44,8 @@ def make_render_fn(model: NerfDSModel, use_sample_at_infinity=None,
 DEFAULT_KEYS = ('rgb', 'depth', 'med_depth', 'acc', 'ray_norm',
                 'ray_delta_x', 'ray_hyper_points', 'ray_predicted_mask',
                 'med_points', 'ray_rotation_field', 'ray_translation_field')
+# ... and those of the configuration's own branches.
+HYPER_C_KEYS = ('ray_hyper_c',)
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -57,13 +59,15 @@ def render_image(model: NerfDSModel, rays_dict: Dict[str, Any], extra_params,
                  *, generator: Optional[torch.Generator] = None,
                  chunk: int = 8192, render_fn=None,
                  level: Optional[str] = None,
-                 keys=DEFAULT_KEYS) -> Dict[str, np.ndarray]:
+                 keys=None) -> Dict[str, np.ndarray]:
   """Renders every pixel of an image in fixed-size chunks, on the model's
   device.
 
   ``rays_dict`` arrays (numpy or torch) are image-shaped ``[H, W, C]`` or
   ``[N, C]``; the metadata may be raw ids (encoded here) and is taken as
-  constant across the image. Matmuls and convolutions run in full float32:
+  constant across the image. ``keys``: the per-ray outputs to assemble
+  (default: ``DEFAULT_KEYS``, and ``HYPER_C_KEYS`` under ``use_hyper_c``).
+  Matmuls and convolutions run in full float32:
   this sets ``torch.backends.cuda.matmul.allow_tf32`` and
   ``torch.backends.cudnn.allow_tf32`` to False.
   """
@@ -71,6 +75,8 @@ def render_image(model: NerfDSModel, rays_dict: Dict[str, Any], extra_params,
   torch.backends.cudnn.allow_tf32 = False
   if render_fn is None:
     render_fn = make_render_fn(model)
+  if keys is None:
+    keys = DEFAULT_KEYS + (HYPER_C_KEYS if model.config.use_hyper_c else ())
   device = model.device
 
   rays_dict = dict(rays_dict)

@@ -13,27 +13,33 @@ from nerfds_torch.ops import math as math_ops
 
 
 class HyperSheetMLP(nn.Module):
-  """The HyperNeRF 'bendy sheet': maps (x, embed) to ambient coordinates."""
+  """The HyperNeRF 'bendy sheet': maps (x, embed) to ambient coordinates.
+
+  ``point_dim`` is the width of ``x``: 3 for the hyper sheet's points; the
+  hyper-c sheet posencs the whole ``points ⊕ viewdirs [⊕ normal]
+  [⊕ reflection]`` vector (6, 9 or 12 channels). ``embed`` may be None
+  (``embed_dim`` 0)."""
 
   def __init__(self, embed_dim: int, output_channels: int = 2,
                min_deg: int = 0, max_deg: int = 1, depth: int = 6,
                width: int = 64, skips: Tuple[int, ...] = (4,),
-               use_residual: bool = False, generator=None):
+               use_residual: bool = False, point_dim: int = 3,
+               generator=None):
     super().__init__()
     self.min_deg, self.max_deg = min_deg, max_deg
     self.use_residual = use_residual
-    in_dim = math_ops.posenc_dim(3, min_deg, max_deg) + embed_dim
+    in_dim = math_ops.posenc_dim(point_dim, min_deg, max_deg) + embed_dim
     self.mlp = mlp_lib.MLP(in_dim, depth, width, skips, 'relu',
                            output_channels=output_channels,
                            output_init=mlp_lib.normal_init(1e-5),
                            generator=generator)
 
-  def forward(self, points: torch.Tensor, embed: torch.Tensor,
+  def forward(self, points: torch.Tensor, embed: Optional[torch.Tensor],
               alpha=None, dtype=None, storage_dtype=None) -> torch.Tensor:
     points_feat = math_ops.posenc(points, self.min_deg, self.max_deg,
                                   use_identity=False, alpha=alpha)
-    out = self.mlp([points_feat, embed], dtype=dtype,
-                   storage_dtype=storage_dtype)
+    out = self.mlp([points_feat] if embed is None else [points_feat, embed],
+                   dtype=dtype, storage_dtype=storage_dtype)
     if self.use_residual:
       out = out + embed
     return out

@@ -10,19 +10,31 @@ family of ``config.hypernerf()``: the SE(3), dual-quaternion and
 translation warp fields (``warp_field_type``), bendy-sheet and
 axis-aligned-plane hyper slicing (``hyper_slice_method``), the warp's
 Jacobian for the elastic loss (``return_warp_jacobian``) and the warp of
-background points (:meth:`NerfDSModel.apply_warp`). ∇σ comes two ways,
-which give the same numbers:
+background points (:meth:`NerfDSModel.apply_warp`). It covers the radiance
+branch's variants too: ∇σ as the colour's normal (``use_sigma_gradient``),
+the reflected view direction (``use_ref_radiance``), the screw axis
+(``screw_input_mode``), the hyper-c sheet (``use_hyper_c``), the window,
+Δx, hyper and mask rgb conditions, the mask flags, every
+``norm_supervision_type`` and a ``hyper_point`` override in the metadata.
+∇σ comes five ways, which give the same numbers:
 
-* ``sigma_gradient_mode='vmap'``: autograd of Σσ with respect to the points
-  (σᵢ depends only on pointᵢ, so this is the per-point gradient);
+* ``sigma_gradient_mode='vmap'`` and ``'vjp'``: autograd of Σσ with respect
+  to the points, the ones-cotangent pullback (σᵢ depends only on pointᵢ, so
+  this is the per-point gradient); ``'naive'`` is ``'vmap'`` that also
+  evaluates the warp field afresh for every later use of the motion, as the
+  JAX package's op-count baseline does;
+* ``'jvp'``: three basis tangents pushed forward through the σ function
+  (``torch.autograd.forward_ad`` dual tensors); the training backward then
+  runs reverse over forward;
 * ``'fused'``: the hand-written trunk kernel (``kernels/fused_trunk.py``)
   returns σ, the heads and g = ∂σ/∂feat in one launch, and autograd pulls g
   back through the warp / hyper / posenc feature path.
 
-Both differentiate with respect to ``p = pts.detach().requires_grad_()``,
-never ``pts`` itself: the mask MLP also reads ``pts`` and its output is
-part of the warp and hyper embeddings, which the JAX package holds fixed
-when it takes the per-point gradient.
+All differentiate with respect to ``p = pts.detach()``, never ``pts``
+itself: the mask MLP also reads ``pts`` and its output is part of the warp
+and hyper embeddings, which the JAX package holds fixed when it takes the
+per-point gradient. The 'canonical' normal target is ∇σ of the template
+MLP alone at the warped points, by plain autograd in every mode.
 
 The speed and precision modes of the JAX package run too:
 
@@ -44,8 +56,13 @@ port never reads ``matmul_precision``: where JAX picks bf16 for K1 through
 ``matmul_precision=None`` alone, the port stays f32 (ROADMAP.md, the
 stated precision deviation).
 
-Flags and modes outside that set raise ``NotImplementedError``; ROADMAP.md
-queues them.
+One deliberate difference: with ``use_sigma_gradient`` the colour itself
+reads ∇σ, so ∇σ is taken even where the caller passes
+``compute_sigma_gradient=False`` (the eval renderer); the JAX package then
+has no normal for the colour and fails.
+
+Flags outside that set raise ``NotImplementedError``; ROADMAP.md queues
+them.
 """
 from __future__ import annotations
 
@@ -53,6 +70,7 @@ import logging
 from typing import Any, Dict, Optional
 
 import torch
+import torch.autograd.forward_ad as fwAD
 from torch import nn
 
 from nerfds_torch.config import ModelConfig
@@ -74,29 +92,18 @@ def unsupported_features(cfg: ModelConfig):
   """Names of the configured features this port does not run yet."""
   checks = {
       'use_bone': cfg.use_bone,
-      'use_hyper_c': cfg.use_hyper_c,
-      'use_ref_radiance': cfg.use_ref_radiance,
-      'use_sigma_gradient': cfg.use_sigma_gradient,
       'use_nerf_embed': cfg.use_nerf_embed,
-      f'screw_input_mode={cfg.screw_input_mode!r}':
-          cfg.screw_input_mode not in (None, 'none', 'None'),
-      f'norm_supervision_type={cfg.norm_supervision_type!r}':
-          cfg.norm_supervision_type != 'warped',
-      f'sigma_gradient_mode={cfg.sigma_gradient_mode!r}':
-          cfg.sigma_gradient_mode not in ('vmap', 'fused'),
       'remat_sigma': cfg.remat_sigma,
       'remat_feat': cfg.remat_feat,
       f'norm_type={cfg.norm_type!r}': cfg.norm_type is not None,
       'concat_dense_inputs': cfg.concat_dense_inputs,
-      'window_x_in_rgb_condition': cfg.window_x_in_rgb_condition,
-      'use_delta_x_in_rgb_condition': cfg.use_delta_x_in_rgb_condition,
-      'use_hyper_for_rgb': cfg.use_hyper_for_rgb,
-      'use_mask_in_rgb': cfg.use_mask_in_rgb,
-      'use_mask_scaled_weights': cfg.use_mask_scaled_weights,
-      'use_coarse_depth_for_mask': cfg.use_coarse_depth_for_mask,
-      'clamp_predicted_mask': cfg.clamp_predicted_mask,
   }
   return [name for name, on in checks.items() if on]
+
+
+SIGMA_GRADIENT_MODES = ('vmap', 'fused', 'jvp', 'vjp', 'naive')
+NORM_SUPERVISION_TYPES = ('warped', 'canonical', 'direct',
+                          'canonical_unwarped')
 
 
 def default_extra_params(cfg: ModelConfig) -> Dict[str, float]:
@@ -159,6 +166,16 @@ class NerfDSModel(nn.Module):
       raise NotImplementedError(
           f'nerfds_torch does not port {missing} yet; see ROADMAP.md, '
           'queue 1')
+    if config.sigma_gradient_mode not in SIGMA_GRADIENT_MODES:
+      raise ValueError(f'sigma_gradient_mode={config.sigma_gradient_mode!r}'
+                       f'; expected one of {SIGMA_GRADIENT_MODES}')
+    if config.norm_supervision_type not in NORM_SUPERVISION_TYPES:
+      raise NotImplementedError(config.norm_supervision_type)
+    if config.use_ref_radiance and not (config.use_sigma_gradient
+                                        or config.use_predicted_norm):
+      raise ValueError('use_ref_radiance reflects the view direction about '
+                       'the normal input: it needs use_sigma_gradient or '
+                       'use_predicted_norm')
     device = resolve_device(device)
     if config.norm_grad_topk and not config.norm_grad_topk_active:
       logging.getLogger(__name__).warning(
@@ -201,8 +218,20 @@ class NerfDSModel(nn.Module):
           max_deg=cfg.mask_max_deg, depth=cfg.mask_mlp_depth,
           width=cfg.mask_mlp_width, skips=cfg.mask_skips,
           output_activation=cfg.mask_output_activation, generator=gen)
+    if cfg.use_hyper_c:
+      self.hyper_c_embed = GLOEmbed(num_hyper_embeds, cfg.hyper_c_embed_dims,
+                                    generator=gen)
+      # The sheet posencs the whole points ⊕ viewdirs [⊕ normal]
+      # [⊕ reflection] vector.
+      self.hyper_c_mlp = HyperSheetMLP(
+          cfg.hyper_c_embed_dims if cfg.use_hyper_c_embed else 0,
+          output_channels=cfg.hyper_c_num_dims,
+          min_deg=cfg.hyper_sheet_min_deg, max_deg=cfg.hyper_sheet_max_deg,
+          depth=cfg.hyper_sheet_depth, width=cfg.hyper_sheet_width,
+          skips=cfg.hyper_sheet_skips, point_dim=self.hyper_c_input_dim,
+          generator=gen)
     rgb_total = (self.rgb_condition_dim + self.extra_rgb_condition_dim
-                 + self.norm_input_dim)
+                 + self.screw_condition_dim + self.norm_input_dim)
     self.nerf = nn.ModuleDict({
         level: NerfMLP(
             self.nerf_in_dim, 0, rgb_total, self.has_condition,
@@ -262,7 +291,9 @@ class NerfDSModel(nn.Module):
 
   @property
   def mask_metadata_dim(self) -> int:
-    return self.config.mask_embed_dims if self.config.use_mask_embed else 0
+    cfg = self.config
+    return ((cfg.mask_embed_dims if cfg.use_mask_embed else 0)
+            + int(cfg.use_coarse_depth_for_mask))
 
   @property
   def nerf_in_dim(self) -> int:
@@ -275,10 +306,14 @@ class NerfDSModel(nn.Module):
     return d
 
   @property
+  def has_norm_input(self) -> bool:
+    return self.config.use_sigma_gradient or self.config.use_predicted_norm
+
+  @property
   def norm_input_dim(self) -> int:
     cfg = self.config
-    if not cfg.use_predicted_norm:
-      return 0
+    if not self.has_norm_input or cfg.use_hyper_c:
+      return 0  # hyper-c replaces the normal features in the rgb branch
     if cfg.norm_input_posenc:
       return math_ops.posenc_dim(3, cfg.norm_input_min_deg,
                                  cfg.norm_input_max_deg,
@@ -287,22 +322,58 @@ class NerfDSModel(nn.Module):
 
   @property
   def rgb_condition_dim(self) -> int:
+    """Channels of the view directions' condition; with hyper-c the view
+    direction feeds the hyper-c sheet instead."""
     cfg = self.config
-    if not cfg.use_viewdirs:
+    if not cfg.use_viewdirs or cfg.use_hyper_c:
       return 0
     return math_ops.posenc_dim(3, cfg.viewdir_min_deg, cfg.viewdir_max_deg,
                                cfg.use_posenc_identity)
 
   @property
+  def screw_condition_dim(self) -> int:
+    mode = self.config.screw_input_mode
+    if mode in (None, 'none', 'None') or self.config.use_hyper_c:
+      return 0
+    return {'rotation': 3, 'full': 6}[mode]
+
+  @property
+  def hyper_c_input_dim(self) -> int:
+    """points ⊕ viewdirs [⊕ normal] [⊕ reflection]."""
+    return (6 + 3 * int(self.has_norm_input)
+            + 3 * int(self.config.use_ref_radiance))
+
+  @property
   def extra_rgb_condition_dim(self) -> int:
-    # "x" in the rgb condition is the trunk output re-fed to the rgb branch.
-    return self.config.nerf_trunk_width if (
-        self.config.use_x_in_rgb_condition) else 0
+    cfg = self.config
+    d = 0
+    if cfg.use_hyper_c:
+      d += math_ops.posenc_dim(cfg.hyper_c_num_dims, cfg.hyper_point_min_deg,
+                               cfg.hyper_point_max_deg, False)
+    if cfg.use_x_in_rgb_condition:
+      if cfg.window_x_in_rgb_condition:
+        d += math_ops.posenc_dim(3, cfg.x_for_rgb_min_deg,
+                                 cfg.x_for_rgb_max_deg, False)
+      else:
+        # "x" in the rgb condition is the trunk output re-fed to the rgb
+        # branch.
+        d += cfg.nerf_trunk_width
+    if cfg.use_delta_x_in_rgb_condition:
+      d += 3
+    if cfg.use_hyper_for_rgb:
+      d += cfg.hyper_num_dims
+    if cfg.use_ref_radiance:
+      d += math_ops.posenc_dim(3, cfg.norm_input_min_deg,
+                               cfg.norm_input_max_deg, cfg.use_posenc_identity)
+    if cfg.use_mask_in_rgb:
+      d += 1
+    return d
 
   @property
   def has_condition(self) -> bool:
-    """Whether the NerfMLP has a bottleneck (an rgb condition is fed)."""
-    return self.config.use_viewdirs
+    """Whether the NerfMLP has a bottleneck: viewdirs count only where they
+    are fed to the rgb branch, which ``use_hyper_c`` supplants."""
+    return self.config.use_viewdirs and not self.config.use_hyper_c
 
   @property
   def levels(self):
@@ -322,6 +393,9 @@ class NerfDSModel(nn.Module):
   def encode_mask_embed(self, metadata):
     return self.mask_embed.encode(metadata[self.config.warp_embed_key])
 
+  def encode_hyper_c_embed(self, metadata):
+    return self.hyper_c_embed.encode(metadata[self.config.hyper_embed_key])
+
   def encode_metadata(self, metadata) -> Tensors:
     """Pre-encodes the GLO embeddings, so chunked rendering skips lookups."""
     encoded = {}
@@ -331,19 +405,22 @@ class NerfDSModel(nn.Module):
       encoded['encoded_hyper'] = self.encode_hyper_embed(metadata)
     if self.config.use_predicted_mask:
       encoded['encoded_mask'] = self.encode_mask_embed(metadata)
+    if self.config.use_hyper_c:
+      encoded['encoded_hyper_c'] = self.encode_hyper_c_embed(metadata)
     return encoded
 
   # -- the σ path -----------------------------------------------------------
 
   def make_feat_fn(self, warp_in_embed, hyper_in_embed, hyper_embed,
-                   extra_params, *, use_warp=True):
+                   extra_params, *, use_warp=True, hyper_override=None):
     """p -> (trunk feature blocks, aux): the warp field, the hyper
     coordinates and the posencs, the part of the σ path before the NeRF
     trunk. The rigid fields give a motion (``aux['screw']``) that the
     normal transport reuses; the translation field gives none. The hyper
-    coordinates come from the bendy sheet, or in 'axis_aligned_plane'
-    slicing are the hyper embedding itself (``hyper_embed``, without the
-    mask channel)."""
+    coordinates are ``hyper_override`` where given (the metadata's
+    ``hyper_point``), else come from the bendy sheet, or in
+    'axis_aligned_plane' slicing are the hyper embedding itself
+    (``hyper_embed``, without the mask channel)."""
     cfg = self.config
 
     def feat_fn(p):
@@ -360,7 +437,9 @@ class NerfDSModel(nn.Module):
       else:
         warped_spatial = p
       hyper = None
-      if cfg.hyper_slice_method == 'bendy_sheet':
+      if hyper_override is not None:
+        hyper = hyper_override
+      elif cfg.hyper_slice_method == 'bendy_sheet':
         hyper = self.hyper_sheet(p, hyper_in_embed,
                                  alpha=extra_params['hyper_sheet_alpha'],
                                  dtype=self.cdtype_for('hyper'),
@@ -387,11 +466,12 @@ class NerfDSModel(nn.Module):
     return feat_fn
 
   def make_sigma_fn(self, level, warp_in_embed, hyper_in_embed, hyper_embed,
-                    extra_params, *, use_warp=True):
+                    extra_params, *, use_warp=True, hyper_override=None):
     """The pointwise-batched density function of ``[N, 3]`` points:
     p -> (σ_raw [N], aux with the trunk output, bottleneck and normal)."""
     feat_fn = self.make_feat_fn(warp_in_embed, hyper_in_embed, hyper_embed,
-                                extra_params, use_warp=use_warp)
+                                extra_params, use_warp=use_warp,
+                                hyper_override=hyper_override)
     nerf = self.nerf[level]
 
     cdt = self.cdtype_for('trunk')
@@ -415,16 +495,20 @@ class NerfDSModel(nn.Module):
         has_bottleneck=self.has_condition)
 
   def _sigma_and_grad(self, level, pts, warp_in_embed, hyper_in_embed,
-                      hyper_embed, extra_params, use_warp, mode=None):
+                      hyper_embed, extra_params, use_warp, mode=None,
+                      hyper_override=None):
     """σ_raw, aux and ∂σ/∂p for every point.
 
     In the caller's no-grad mode everything comes back detached. With grad
     on, ∇σ keeps its graph (second order), so a loss on it reaches every
-    parameter upstream: 'vmap' takes autograd of Σσ with create_graph;
-    'fused' runs the trunk through ``fused_trunk.TrunkSigmaGrad`` (forward
-    K1f, backward K1b) on the feature path's output ``feat`` itself, and
-    pulls g back through the feature path with create_graph, so the outer
-    backward reaches Ḡ in K1b and the small MLPs' second-order terms.
+    parameter upstream: 'vmap', 'vjp' and 'naive' take autograd of Σσ with
+    create_graph; 'jvp' pushes the three basis tangents through the σ
+    function as dual tensors, whose tangents keep their graph (reverse over
+    forward); 'fused' runs the trunk through ``fused_trunk.TrunkSigmaGrad``
+    (forward K1f, backward K1b) on the feature path's output ``feat``
+    itself, and pulls g back through the feature path with create_graph, so
+    the outer backward reaches Ḡ in K1b and the small MLPs' second-order
+    terms.
 
     The gradient is taken with respect to a separate leaf
     ``p = pts.detach()``, so it reaches neither the mask path nor ``pts``.
@@ -436,12 +520,12 @@ class NerfDSModel(nn.Module):
     mode = mode or self.config.sigma_gradient_mode
     if mode == 'fused' and self.config.activation != 'relu':
       mode = 'vmap'  # as the JAX package does: the kernel is relu-only
-    p = pts.detach().requires_grad_()
+    p = pts.detach().requires_grad_(mode != 'jvp')
     nerf = self.nerf[level]
+    fn_kw = dict(use_warp=use_warp, hyper_override=hyper_override)
     if mode == 'fused':
       feat_fn = self.make_feat_fn(warp_in_embed, hyper_in_embed,
-                                  hyper_embed, extra_params,
-                                  use_warp=use_warp)
+                                  hyper_embed, extra_params, **fn_kw)
       with torch.enable_grad():
         parts, aux = feat_fn(p)
         feat = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
@@ -452,26 +536,73 @@ class NerfDSModel(nn.Module):
                                         create_graph=outer_grad)
       aux.update(trunk_out=trunk_out, bottleneck=bottleneck, norm=norm)
       sigma_raw = sigma_2d[..., 0]
-    else:
+    elif mode == 'jvp':
       sigma_fn = self.make_sigma_fn(level, warp_in_embed, hyper_in_embed,
-                                    hyper_embed, extra_params,
-                                    use_warp=use_warp)
+                                    hyper_embed, extra_params, **fn_kw)
+      primal = lambda x: (fwAD.unpack_dual(x).primal
+                          if isinstance(x, torch.Tensor) else x)
+      cols = []
+      for j in range(3):
+        tangent = torch.zeros_like(p)
+        tangent[:, j] = 1.0
+        with fwAD.dual_level():
+          sigma_j, aux_j = sigma_fn(fwAD.make_dual(p, tangent))
+          cols.append(fwAD.unpack_dual(sigma_j).tangent)
+          if j == 0:
+            sigma_raw = primal(sigma_j)
+            aux = {k: (type(v)(*map(primal, v))
+                       if isinstance(v, (rigid.Screw, dq_lib.DualQuatMotion))
+                       else primal(v)) for k, v in aux_j.items()}
+      grad_pts = torch.stack(cols, -1)
+    elif mode in ('vmap', 'vjp', 'naive'):
+      sigma_fn = self.make_sigma_fn(level, warp_in_embed, hyper_in_embed,
+                                    hyper_embed, extra_params, **fn_kw)
       with torch.enable_grad():
         sigma_raw, aux = sigma_fn(p)
         (grad_pts,) = torch.autograd.grad(sigma_raw.sum(), p,
                                           create_graph=outer_grad)
+    else:
+      raise ValueError(mode)
     if not outer_grad:
       sigma_raw, grad_pts = sigma_raw.detach(), grad_pts.detach()
       aux = {k: _detach(v) for k, v in aux.items()}
     return sigma_raw, aux, grad_pts
 
+  def _canonical_sigma_grad(self, level, warped, extra_params):
+    """∂σ/∂w of the template MLP alone (the posencs of the spatial and
+    hyper parts, the trunk and the σ head) at the canonical points
+    ``warped`` [N, 3 (+ hyper)]: the 'canonical' normal target. Plain
+    autograd, with create_graph under grad mode, so a loss on it reaches
+    the template's and (through ``warped``) the warp's parameters."""
+    cfg = self.config
+    nerf = self.nerf[level]
+    outer_grad = torch.is_grad_enabled()
+    with torch.enable_grad():
+      w = (warped if outer_grad and warped.requires_grad
+           else warped.detach().requires_grad_())
+      feat = [math_ops.posenc(
+          w[..., :3], cfg.spatial_point_min_deg, cfg.spatial_point_max_deg,
+          cfg.use_posenc_identity, alpha=extra_params['nerf_alpha'])]
+      if w.shape[-1] > 3:
+        feat.append(math_ops.posenc(
+            w[..., 3:], cfg.hyper_point_min_deg, cfg.hyper_point_max_deg,
+            False, alpha=extra_params['hyper_alpha']))
+      trunk_out = nerf.trunk(feat, dtype=self.cdtype_for('trunk'),
+                             storage_dtype=self.sdtype_for('trunk'))
+      sigma_raw, _ = nerf.query_sigma(trunk_out, trunk_out,
+                                      dtype=self.cdtype_for('trunk'))
+      (grad_w,) = torch.autograd.grad(sigma_raw.sum(), w,
+                                      create_graph=outer_grad)
+    return grad_w if outer_grad else grad_w.detach()
+
   # -- the per-level forward ------------------------------------------------
 
   def render_samples(self, level, points, z_vals, directions, viewdirs,
                      metadata, extra_params, gt_mask, *, generator=None,
-                     use_warp=True, metadata_encoded=False,
-                     use_sample_at_infinity=True, mask_ratio=1.0,
-                     sharp_weights_std=1.0, return_full=False,
+                     coarse_depth=None, use_warp=True,
+                     metadata_encoded=False, use_sample_at_infinity=True,
+                     mask_ratio=1.0, sharp_weights_std=1.0,
+                     x_for_rgb_alpha=4.0, return_full=False,
                      compute_sigma_gradient=None,
                      use_norm_grad_topk=True,
                      return_warp_jacobian=False) -> Tensors:
@@ -479,14 +610,14 @@ class NerfDSModel(nn.Module):
     runs the exact ∇σ path even where ``norm_grad_topk`` is active, so that
     ``target_norm`` comes back at every sample (the eval renderer).
     ``return_warp_jacobian`` adds ``warp_jacobian`` [R, S, 3, 3], ∂warp/∂x
-    at the samples (the elastic loss's input)."""
+    at the samples (the elastic loss's input). ``coarse_depth`` [R]: the
+    coarse level's depth, the mask MLP's extra input under
+    ``use_coarse_depth_for_mask`` (−1 where None, at the coarse level)."""
     cfg = self.config
     num_rays, num_samples = points.shape[:2]
     n = num_rays * num_samples
     pts = points.reshape(n, 3)
     out: Tensors = {'points': points}
-    if metadata and 'hyper_point' in metadata:
-      raise NotImplementedError('hyper_point override; see ROADMAP.md')
 
     def broadcast_ray(x):
       """[R, C] per-ray feature -> [R*S, C] per-sample feature."""
@@ -509,7 +640,7 @@ class NerfDSModel(nn.Module):
       else:
         hyper_embed = broadcast_ray(self.encode_hyper_embed(metadata))
     rgb_condition = None
-    if cfg.use_viewdirs:
+    if cfg.use_viewdirs and not cfg.use_hyper_c:
       rgb_condition = [broadcast_ray(math_ops.posenc(
           viewdirs, cfg.viewdir_min_deg, cfg.viewdir_max_deg,
           cfg.use_posenc_identity))]
@@ -523,12 +654,20 @@ class NerfDSModel(nn.Module):
         mask_embed = broadcast_ray(metadata['encoded_mask'])
       else:
         mask_embed = broadcast_ray(self.encode_mask_embed(metadata))
+      if cfg.use_coarse_depth_for_mask:
+        depth_feat = (broadcast_ray(coarse_depth[:, None])
+                      if coarse_depth is not None
+                      else pts.new_full((n, 1), -1.0))
+        mask_embed = torch.cat([depth_feat, mask_embed], -1)
       predicted_mask = self.mask_mlp(pts, mask_embed,
                                      alpha=extra_params['warp_alpha'],
                                      use_embed=cfg.use_mask_embed,
                                      dtype=self.cdtype_for('mask'),
                                      storage_dtype=self.sdtype_for('mask'))
       out['predicted_mask'] = predicted_mask.reshape(num_rays, num_samples, 1)
+      if cfg.clamp_predicted_mask:
+        threshold = cfg.predicted_mask_clamp_threshold
+        predicted_mask = torch.clamp(predicted_mask, max=threshold) / threshold
       mask = predicted_mask * mask_ratio + gt_mask_b * (1.0 - mask_ratio)
     else:
       mask = gt_mask_b
@@ -541,8 +680,14 @@ class NerfDSModel(nn.Module):
     if cfg.has_hyper and cfg.use_mask_in_hyper:
       hyper_in_embed = torch.cat([hyper_embed, mask], -1)
 
+    hyper_override = metadata.get('hyper_point') if metadata else None
+    if hyper_override is not None:
+      hyper_override = broadcast_ray(hyper_override)
+
     if compute_sigma_gradient is None:
       compute_sigma_gradient = cfg.needs_sigma_gradient
+    # With use_sigma_gradient the colour reads ∇σ: take it regardless.
+    compute_sigma_gradient = compute_sigma_gradient or cfg.use_sigma_gradient
     # norm_grad_topk: ∇σ is only the normal loss's target here, so the σ
     # pass below runs without it, and it is taken after compositing at the
     # k highest-weight samples of each ray.
@@ -554,30 +699,57 @@ class NerfDSModel(nn.Module):
     if compute_sigma_gradient:
       sigma_raw, aux, grad_pts = self._sigma_and_grad(
           level, pts, warp_in_embed, hyper_in_embed, hyper_embed,
-          extra_params, use_warp)
+          extra_params, use_warp, hyper_override=hyper_override)
       if cfg.stop_target_norm_gradient:
         grad_pts = grad_pts.detach()
       sigma_gradient = math_ops.normalize(-grad_pts)
     else:
       sigma_raw, aux = self.make_sigma_fn(
           level, warp_in_embed, hyper_in_embed, hyper_embed, extra_params,
-          use_warp=use_warp)(pts)
+          use_warp=use_warp, hyper_override=hyper_override)(pts)
       sigma_gradient = None
     screw = aux['screw']
     norm = aux['norm']
+
+    # 'canonical' supervision: ∇σ of the template MLP alone, with respect
+    # to the canonical (warped ⊕ hyper) coordinates.
+    sigma_gradient_w = None
+    if (cfg.predict_norm and compute_sigma_gradient
+        and cfg.norm_supervision_type == 'canonical'):
+      grad_w = self._canonical_sigma_grad(level, aux['warped'], extra_params)
+      sigma_gradient_w = math_ops.normalize(-grad_w[..., :3])
+
+    def fresh_screw():
+      """The motion for a later use: in 'naive' mode the warp field
+      evaluated afresh (the JAX package's op-count baseline), else the σ
+      path's."""
+      if (cfg.sigma_gradient_mode == 'naive' and use_warp
+          and screw is not None):
+        return self.warp_field.motion(pts, warp_in_embed,
+                                      extra_params['warp_alpha'],
+                                      self.cdtype_for('warp'))
+      return screw
 
     if return_warp_jacobian and use_warp:
       warp_jac = self.warp_field.warp_jacobian(pts, warp_in_embed,
                                                extra_params['warp_alpha'])
       out['warp_jacobian'] = warp_jac.reshape(num_rays, num_samples, 3, 3)
 
-    # Normal input of the radiance branch: the predicted normal, rotated
-    # back to the observation frame by the inverse of the same screw.
+    # Normal input of the radiance branch: ∇σ itself, or the predicted
+    # normal, rotated back to the observation frame by the inverse of the
+    # same screw where it is supervised in the canonical frame.
+    norm_input = None
+    if cfg.use_sigma_gradient:
+      norm_input = sigma_gradient
+    elif cfg.use_predicted_norm:
+      if cfg.norm_supervision_type in ('warped', 'canonical'):
+        norm_input = math_ops.normalize(norm)
+        if screw is not None:
+          norm_input = rigid.rotate_inverse(fresh_screw(), norm_input)
+      else:  # 'direct', 'canonical_unwarped'
+        norm_input = norm
     norm_input_feat = None
-    if cfg.use_predicted_norm:
-      norm_input = math_ops.normalize(norm)
-      if screw is not None:
-        norm_input = rigid.rotate_inverse(screw, norm_input)
+    if norm_input is not None:
       if cfg.stop_norm_gradient:
         norm_input = norm_input.detach()
       norm_input = math_ops.normalize(norm_input)
@@ -588,21 +760,83 @@ class NerfDSModel(nn.Module):
           cfg.use_posenc_identity, alpha=extra_params['norm_input_alpha'])
           if cfg.norm_input_posenc else norm_input)
 
-    extra_rgb_condition = ([aux['trunk_out']] if cfg.use_x_in_rgb_condition
-                           else None)
+    ref_radiance = ref_radiance_feat = None
+    if cfg.use_ref_radiance:
+      ref_radiance = math_ops.reflect(broadcast_ray(viewdirs), norm_input)
+      ref_radiance_feat = math_ops.posenc(
+          ref_radiance, cfg.norm_input_min_deg, cfg.norm_input_max_deg,
+          cfg.use_posenc_identity, alpha=extra_params['norm_input_alpha'])
 
-    # Mask-derived compositing weights (for the 3D mask loss).
+    # Extra rgb conditions, in the JAX package's order.
+    extra_rgb_parts = []
+    screw_condition = None
+    if (cfg.screw_input_mode not in (None, 'none', 'None')
+        and not cfg.use_hyper_c and screw is not None):
+      axis6 = screw.axis
+      screw_condition = (axis6[:, :3] if cfg.screw_input_mode == 'rotation'
+                         else axis6)
+    if cfg.use_hyper_c:
+      # Ambient colour coordinates: a sheet MLP over the (stop-gradiented)
+      # points ⊕ viewdirs [⊕ normal] [⊕ reflection], in place of the view
+      # direction and normal conditions.
+      points_input = (aux['warped'] if cfg.hyper_c_hyper_input
+                      else pts).detach()
+      hc_in = [points_input[..., :3], broadcast_ray(viewdirs)]
+      if norm_input is not None:
+        hc_in.append(norm_input)
+      if ref_radiance is not None:
+        hc_in.append(ref_radiance)
+      hyper_c_embed = None
+      if cfg.use_hyper_c_embed:
+        hyper_c_embed = broadcast_ray(
+            metadata['encoded_hyper_c']
+            if metadata_encoded and 'encoded_hyper_c' in metadata
+            else self.encode_hyper_c_embed(metadata))
+      hyper_c = self.hyper_c_mlp(torch.cat(hc_in, -1), hyper_c_embed,
+                                 dtype=self.cdtype_for('hyper'))
+      extra_rgb_parts.append(math_ops.posenc(
+          hyper_c, cfg.hyper_point_min_deg, cfg.hyper_point_max_deg, False,
+          alpha=extra_params['hyper_alpha']))
+      out['hyper_c'] = hyper_c.reshape(num_rays, num_samples, -1)
+      norm_input_feat = None
+    if cfg.use_x_in_rgb_condition:
+      extra_rgb_parts.append(
+          math_ops.posenc(pts, cfg.x_for_rgb_min_deg, cfg.x_for_rgb_max_deg,
+                          alpha=x_for_rgb_alpha)
+          if cfg.window_x_in_rgb_condition else aux['trunk_out'])
+    if cfg.use_delta_x_in_rgb_condition:
+      extra_rgb_parts.append((aux['warped_spatial'] - pts).detach())
+    if cfg.use_hyper_for_rgb:
+      extra_rgb_parts.append(aux['hyper'])
+    if ref_radiance_feat is not None:
+      extra_rgb_parts.append(ref_radiance_feat)
+
+    # Mask-derived compositing weights (for the 3D mask loss and the mask
+    # rgb condition).
     sigma_act = get_activation(cfg.sigma_activation)
     mask_weights = rendering.cal_weights(
         sigma_act(sigma_raw.reshape(num_rays, num_samples)), z_vals,
-        directions).detach()
+        directions, scale=5.0 if cfg.use_mask_scaled_weights else 1.0
+    ).detach()
+    sharp_weights = None
     if cfg.use_mask_sharp_weights:
-      out['sharp_weights'] = rendering.sharpen_weights(
+      sharp_weights = rendering.sharpen_weights(
           mask_weights, z_vals, std=sharp_weights_std)
+      out['sharp_weights'] = sharp_weights
+    if cfg.use_mask_in_rgb:
+      w = (sharp_weights if cfg.use_mask_sharp_weights
+           else mask_weights).reshape(n, 1)
+      mask_3d = w * gt_mask_b
+      if cfg.use_predicted_mask:
+        predicted_mask_3d = (predicted_mask if cfg.use_3d_mask
+                             else w * predicted_mask)
+        mask_3d = (predicted_mask_3d * mask_ratio
+                   + mask_3d * (1.0 - mask_ratio))
+      extra_rgb_parts.append(mask_3d)
 
     rgb_raw = self.nerf[level].query_rgb(
         aux['trunk_out'], aux['bottleneck'], rgb_condition,
-        extra_rgb_condition, None, norm_input_feat,
+        extra_rgb_parts or None, screw_condition, norm_input_feat,
         dtype=self.cdtype_for('rgb'), storage_dtype=self.sdtype_for('rgb'))
     rgb = torch.sigmoid(rgb_raw).reshape(num_rays, num_samples, 3)
     sigma = sigma_act(rendering.noise_regularize_sigma(
@@ -627,23 +861,23 @@ class NerfDSModel(nn.Module):
 
       def gather_samples(x_flat):
         """Per-sample rows [R*S, C] -> the selected rows [R*k, C]."""
+        if x_flat is None:
+          return None
         c = x_flat.shape[-1]
         return torch.gather(
             x_flat.reshape(num_rays, num_samples, c), 1,
             topk_idx[..., None].expand(-1, -1, c)).reshape(-1, c)
 
       _, aux_k, grad_k = self._sigma_and_grad(
-          level, gather_samples(pts),
-          gather_samples(warp_in_embed) if warp_in_embed is not None
-          else None,
-          gather_samples(hyper_in_embed) if hyper_in_embed is not None
-          else None,
-          gather_samples(hyper_embed) if hyper_embed is not None else None,
-          extra_params, use_warp, mode='vmap')
+          level, gather_samples(pts), gather_samples(warp_in_embed),
+          gather_samples(hyper_in_embed), gather_samples(hyper_embed),
+          extra_params, use_warp, mode='vmap',
+          hyper_override=gather_samples(hyper_override))
       if cfg.stop_target_norm_gradient:
         grad_k = grad_k.detach()
       target_k = math_ops.normalize(-grad_k)
-      if aux_k['screw'] is not None:
+      if (cfg.norm_supervision_type == 'warped'
+          and aux_k['screw'] is not None):
         target_k = math_ops.normalize(rigid.rotate(aux_k['screw'], target_k))
       out['target_norm'] = target_k.reshape(num_rays, topk_k, 3)
       out['norm_topk_idx'] = topk_idx
@@ -654,11 +888,16 @@ class NerfDSModel(nn.Module):
       back_facing = (norm_rs * viewdirs[:, None, :]).sum(-1)
       out['back_facing'] = torch.relu(back_facing) ** 2
     if cfg.predict_norm and sigma_gradient is not None:
-      # Canonical-frame target: ∇σ rotated forward by the same screw.
-      target = (rigid.rotate(screw, sigma_gradient) if screw is not None
-                else sigma_gradient)
-      out['target_norm'] = math_ops.normalize(target).reshape(
-          num_rays, num_samples, 3)
+      if cfg.norm_supervision_type == 'warped':
+        # Canonical-frame target: ∇σ rotated forward by the same screw.
+        target = math_ops.normalize(
+            rigid.rotate(fresh_screw(), sigma_gradient) if screw is not None
+            else sigma_gradient)
+      elif cfg.norm_supervision_type == 'canonical':
+        target = sigma_gradient_w
+      else:  # 'direct', 'canonical_unwarped': ∇σ unrotated
+        target = sigma_gradient
+      out['target_norm'] = target.reshape(num_rays, num_samples, 3)
 
     if norm is not None:
       out['ray_norm'] = (weights[..., None]
@@ -671,9 +910,15 @@ class NerfDSModel(nn.Module):
     out['ray_delta_x'] = (weights[..., None] * delta_x).sum(-2)
     out['ray_hyper_points'] = (weights[..., None]
                                * warped_points[..., 3:]).sum(-2)
+    if cfg.use_hyper_c:
+      out['ray_hyper_c'] = (weights[..., None] * out['hyper_c']).sum(-2)
     if cfg.use_predicted_mask:
-      out['ray_predicted_mask'] = (weights[..., None]
-                                   * out['predicted_mask']).sum(-2)
+      pm = out['predicted_mask']
+      if cfg.use_mask_scaled_weights:
+        out['scaled_weights'] = mask_weights
+        out['ray_predicted_mask'] = (mask_weights[..., None] * pm).sum(-2)
+      else:
+        out['ray_predicted_mask'] = (weights[..., None] * pm).sum(-2)
 
     depth_indices = rendering.compute_depth_index(weights)
     out['med_points'] = torch.gather(
@@ -681,11 +926,12 @@ class NerfDSModel(nn.Module):
             -1, 1, warped_points.shape[-1]))
 
     if return_full and screw is not None:
+      viz_screw = fresh_screw()
       rotation_ref = math_ops.normalize(torch.ones_like(pts))
-      rf = math_ops.normalize(rigid.rotate(screw, rotation_ref))
+      rf = math_ops.normalize(rigid.rotate(viz_screw, rotation_ref))
       out['ray_rotation_field'] = (
           weights[..., None] * rf.reshape(num_rays, num_samples, 3)).sum(-2)
-      tf = rigid.translation(screw).reshape(num_rays, num_samples, 3)
+      tf = rigid.translation(viz_screw).reshape(num_rays, num_samples, 3)
       out['ray_translation_field'] = (weights[..., None] * tf).sum(-2)
     return out
 
@@ -716,14 +962,16 @@ class NerfDSModel(nn.Module):
              metadata_encoded=False, return_points=False,
              return_weights=True, near=None, far=None,
              use_sample_at_infinity=None, mask_ratio=1.0,
-             sharp_weights_std=1.0, return_full=False,
+             sharp_weights_std=1.0, x_for_rgb_alpha=4.0, return_full=False,
              compute_sigma_gradient=None,
              use_norm_grad_topk=True,
              return_warp_jacobian=False) -> Dict[str, Tensors]:
     """Coarse and fine rendering of a ray batch. ``rays``: origins [R,3],
     directions [R,3], optional viewdirs [R,3], metadata (ids or
     ``encoded_*``), mask [R,1]. ``generator`` draws the stratified samples
-    and the σ noise, where the config asks for them.
+    and the σ noise, where the config asks for them. ``x_for_rgb_alpha``:
+    the posenc window of the points in the rgb condition
+    (``window_x_in_rgb_condition``); the step passes its schedule's value.
     ``return_warp_jacobian``: True for every level, as the JAX package, or
     the names of the levels that need it (the loss reads only the coarse
     one, and eager PyTorch would compute an unread one all the same)."""
@@ -740,7 +988,7 @@ class NerfDSModel(nn.Module):
     kwargs = dict(generator=generator, use_warp=use_warp,
                   metadata_encoded=metadata_encoded, mask_ratio=mask_ratio,
                   sharp_weights_std=sharp_weights_std,
-                  return_full=return_full,
+                  x_for_rgb_alpha=x_for_rgb_alpha, return_full=return_full,
                   compute_sigma_gradient=compute_sigma_gradient,
                   use_norm_grad_topk=use_norm_grad_topk)
 
@@ -764,7 +1012,7 @@ class NerfDSModel(nn.Module):
           generator)
       out['fine'] = self.render_samples(
           'fine', points, z_vals, directions, viewdirs, metadata,
-          extra_params, gt_mask,
+          extra_params, gt_mask, coarse_depth=coarse['depth'],
           use_sample_at_infinity=use_sample_at_infinity,
           return_warp_jacobian='fine' in jacobian_levels, **kwargs)
     for level in out.values():

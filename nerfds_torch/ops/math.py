@@ -1,8 +1,9 @@
 """Core math primitives (L0), counterpart of ``nerfds_tpu/ops/math.py``.
 
 Positional encoding with windowed annealing, safe normalisation, the safe
-norm with its zeroed gradient near 0, the robust and shrinkage losses, PSNR,
-the divergence and curl of a warp Jacobian, and gradient clipping. Shape-polymorphic over leading batch dims.
+norm with its zeroed derivative near 0, the reflected direction, the robust
+and shrinkage losses, PSNR, the divergence and curl of a warp Jacobian, and
+gradient clipping. Shape-polymorphic over leading batch dims.
 """
 from __future__ import annotations
 
@@ -77,12 +78,14 @@ def normalize(v: torch.Tensor, eps: float = F32_EPS) -> torch.Tensor:
 
 
 class _SafeNorm(torch.autograd.Function):
-  """L2 norm, keeping ``dim``, whose gradient is zeroed where the norm is
-  below ``tol``.
+  """L2 norm, keeping ``dim``, whose derivative is zeroed where the norm is
+  below ``tol``, in reverse mode (``backward``) and in forward mode
+  (``jvp``, the same rule as JAX's ``custom_jvp``).
 
-  The norm ``y`` is this Function's own output, so the backward's use of
-  ``y`` stays on the graph: a second derivative takes its ∂y/∂x term, as
-  JAX's ``custom_jvp`` does. ``safe_norm`` squeezes outside the Function;
+  The norm ``y`` is this Function's own output, so the backward's and the
+  jvp's use of ``y`` stay on the graph: a second derivative (reverse over
+  reverse, or reverse over forward) takes its ∂y/∂x term, as JAX's
+  ``custom_jvp`` does. ``safe_norm`` squeezes outside the Function;
   squeezing inside would save a tensor that is not the output and lose that
   term.
   """
@@ -91,8 +94,16 @@ class _SafeNorm(torch.autograd.Function):
   def forward(ctx, x, dim, tol):
     y = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
     ctx.save_for_backward(x, y)
-    ctx.tol = tol
+    ctx.save_for_forward(x, y)
+    ctx.tol, ctx.dim = tol, dim
     return y
+
+  @staticmethod
+  def jvp(ctx, x_dot, dim_dot, tol_dot):
+    x, y = ctx.saved_tensors
+    y_safe = torch.clamp(y, min=ctx.tol)
+    y_dot = (x * x_dot).sum(ctx.dim, keepdim=True) / y_safe
+    return torch.where(y > max(ctx.tol, 1e-30), y_dot, torch.zeros_like(y))
 
   @staticmethod
   def backward(ctx, g):
@@ -107,6 +118,12 @@ def safe_norm(x: torch.Tensor, axis: int = -1, keepdims: bool = False,
               tol: float = 1e-9) -> torch.Tensor:
   y = _SafeNorm.apply(x, axis, tol)
   return y if keepdims else y.squeeze(axis)
+
+
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+  """The reflected direction 2(d·n)n − d, both inputs normalised first."""
+  d, n = normalize(d), normalize(n)
+  return 2.0 * (d * n).sum(-1, keepdim=True) * n - d
 
 
 def safe_sqrt(x: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:

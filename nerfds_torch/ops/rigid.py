@@ -92,8 +92,8 @@ def batched_jacobian(fn: Callable[..., torch.Tensor], points: torch.Tensor,
 
   Three reverse passes, one for each basis cotangent eᵢ, give the rows;
   JAX's counterpart pushes three basis tangents forward instead. Reverse
-  mode runs through every op of the warp fields, ``math._SafeNorm`` (which
-  has no forward-mode rule) included, and with grad mode on each pass keeps
+  mode runs through every op of the warp fields, and with grad mode on each
+  pass keeps
   its graph (``create_graph``), so a loss on J reaches the parameters: the
   caller's backward then differentiates twice. ``points`` is taken as a
   fresh leaf; ``args`` keep their graphs.

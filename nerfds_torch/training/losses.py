@@ -236,8 +236,12 @@ def compute_loss_and_stats(
     weights = model_out['weights'].detach()
     predicted_mask = model_out['predicted_mask'][..., 0]
     gt_mask = batch['mask'][..., 0]
-    w = (model_out['sharp_weights'].detach()
-         if model_cfg.use_mask_sharp_weights else weights)
+    if model_cfg.use_mask_sharp_weights:
+      w = model_out['sharp_weights'].detach()
+    elif model_cfg.use_mask_scaled_weights:
+      w = model_out['scaled_weights'].detach()
+    else:
+      w = weights
     ray_predicted_mask = (w * predicted_mask).sum(1)
     predicted_mask_loss = ((gt_mask - ray_predicted_mask) ** 2).mean()
     stats['loss/predicted_mask'] = predicted_mask_loss

@@ -111,6 +111,7 @@ def make_loss_fn(model: NerfDSModel, train_cfg: TrainConfig
         dict(generator=generator, return_points=True, return_weights=True,
              mask_ratio=scalars['mask_ratio'],
              sharp_weights_std=scalars['sharp_weights_std'],
+             x_for_rgb_alpha=scalars['x_for_rgb_alpha'],
              return_warp_jacobian=(('coarse',) if train_cfg.use_elastic_loss
                                    else False)))
     total = 0.0

@@ -78,19 +78,26 @@ def test_composite_kernel_at_block_and_chunk_edges(cuda, num_samples,
                                  msg=f'R={num_rays}')
 
 
-def nerf_ds_trunk(cuda, gen):
+def nerf_ds_trunk(cuda, gen, norm_dim=3, has_bottleneck=True):
   """The nerf_ds NeRF trunk (8x256, skip at 4, 52 inputs, σ + normal head,
-  bottleneck) on the card."""
-  tm = NerfMLP(52, 0, 0, True, trunk_depth=8, trunk_width=256, skips=(4,),
-               predict_norm=True, generator=gen).to(cuda)
+  bottleneck) on the card; ``norm_dim=0`` gives a σ-only head
+  (``use_sigma_gradient`` without ``predict_norm``), ``has_bottleneck=False``
+  the trunk of ``use_hyper_c``."""
+  tm = NerfMLP(52, 0, 0, has_bottleneck, trunk_depth=8, trunk_width=256,
+               skips=(4,), predict_norm=norm_dim > 0, generator=gen).to(cuda)
   spec = tft.TrunkSpec(depth=8, width=256, skips=(4,), in_dim=52,
-                       alpha_channels=1, norm_dim=3, has_bottleneck=True)
+                       alpha_channels=1, norm_dim=norm_dim,
+                       has_bottleneck=has_bottleneck)
   return spec, tm.trunk_weights()
 
 
-def check_trunk_forward(cuda, n, seed):
+# K1's head shapes: nerf_ds()'s, the σ-only head, no bottleneck, both.
+HEADS = ((3, True), (0, True), (3, False), (0, False))
+
+
+def check_trunk_forward(cuda, n, seed, norm_dim=3, has_bottleneck=True):
   gen = torch.Generator().manual_seed(seed)
-  spec, weights = nerf_ds_trunk(cuda, gen)
+  spec, weights = nerf_ds_trunk(cuda, gen, norm_dim, has_bottleneck)
   feat = torch.rand(n, 52, generator=gen).to(cuda) * 2 - 1
   with torch.no_grad():
     before = kernels.launch_counts['fused_trunk_fwd']
@@ -98,6 +105,9 @@ def check_trunk_forward(cuda, n, seed):
     want = tft.trunk_sigma_grad_reference(feat, weights, spec)
   assert kernels.launch_counts['fused_trunk_fwd'] == before + 1
   for name, g, w in zip(('sigma', 'normal', 'trunk', 'bneck'), got, want):
+    if w is None:  # no normal head
+      assert g is None
+      continue
     torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
   # g follows the relu masks; a pre-activation within rounding of 0 may
   # fall on the other side of the kink in the two versions.
@@ -106,8 +116,11 @@ def check_trunk_forward(cuda, n, seed):
 
 
 @pytest.mark.cuda
-def test_fused_trunk_kernel_matches_plain_on_card(cuda):
-  check_trunk_forward(cuda, 4099, seed=0)
+@pytest.mark.parametrize('norm_dim,has_bottleneck', HEADS)
+def test_fused_trunk_kernel_matches_plain_on_card(cuda, norm_dim,
+                                                  has_bottleneck):
+  check_trunk_forward(cuda, 4099, seed=0, norm_dim=norm_dim,
+                      has_bottleneck=has_bottleneck)
 
 
 # Row counts at the edges of the kernels' row tile: one row, a tile short
@@ -123,12 +136,12 @@ def test_fused_trunk_kernel_at_tile_edges(cuda, n):
   check_trunk_forward(cuda, n, seed=n)
 
 
-def check_trunk_backward(cuda, n, seed):
+def check_trunk_backward(cuda, n, seed, norm_dim=3, has_bottleneck=True):
   gen = torch.Generator().manual_seed(seed)
-  spec, weights = nerf_ds_trunk(cuda, gen)
+  spec, weights = nerf_ds_trunk(cuda, gen, norm_dim, has_bottleneck)
   feat = (torch.rand(n, 52, generator=gen) * 2 - 1).to(cuda)
   cots = tuple(torch.randn(n, c, generator=gen).to(cuda)
-               for c in (1, 3, 256, 256, 52))
+               for c in (1, norm_dim, 256, 256, 52))
   # Rows at relu kinks, as in chip_smoke.py: each feat_bar row beyond
   # tolerance must be proven exact with one mask flipped, such rows are at
   # most 1e-3 of N, and with their cotangents zeroed everything must agree.
@@ -157,9 +170,12 @@ def check_trunk_backward(cuda, n, seed):
 
 
 @pytest.mark.cuda
-def test_fused_trunk_backward_kernel_matches_plain_on_card(cuda):
+@pytest.mark.parametrize('norm_dim,has_bottleneck', HEADS)
+def test_fused_trunk_backward_kernel_matches_plain_on_card(cuda, norm_dim,
+                                                           has_bottleneck):
   # A ragged last tile and a ragged last weight-grad split.
-  check_trunk_backward(cuda, 4099, seed=1)
+  check_trunk_backward(cuda, 4099, seed=1, norm_dim=norm_dim,
+                       has_bottleneck=has_bottleneck)
 
 
 @pytest.mark.cuda
@@ -418,3 +434,81 @@ def test_config2_step_on_card_matches_cpu(cuda):
   on_card = grads(cuda, batch)
   assert kernels.launch_counts['composite_fwd'] == before + 2
   assert worst_rel(on_card, grads('cpu', batch)) < 1e-3
+
+
+def sigma_normals_step():
+  """nerf_ds() with ∇σ as the colour's normal and the reflected view
+  direction (``use_sigma_gradient``, ``use_ref_radiance``, no predicted
+  normal; K1 with a σ-only head), 'fused' ∇σ and K2, at 32 + 32 samples,
+  and 512 rays of the synthetic scene. The normal input's posenc window is
+  open, so the rgb loss reaches K1b's Ḡ. Returns grads(device, batch) and
+  the batch."""
+  import dataclasses
+  from nerfds_torch import config as config_lib
+  from nerfds_torch.datasets import SyntheticDataSource
+  from nerfds_torch.models import NerfDSModel
+  from nerfds_torch.training import step as step_lib
+  source = SyntheticDataSource(num_frames=4, image_size=32, gt_samples=32)
+  store = source.build_ray_store(source.train_ids)
+  idx = np.random.RandomState(0).choice(store.num_rays, 512, replace=False)
+  batch = {'origins': store.origins[idx], 'directions': store.directions[idx],
+           'rgb': store.rgb[idx], 'mask': store.mask[idx],
+           'metadata': {'warp': store.metadata['warp'][idx]}}
+  model_cfg = dataclasses.replace(
+      config_lib.nerf_ds(), num_coarse_samples=32, num_fine_samples=32,
+      use_stratified_sampling=False, use_pallas_compositing=True,
+      sigma_gradient_mode='fused', predict_norm=False,
+      use_predicted_norm=False, use_sigma_gradient=True,
+      stop_norm_gradient=False, use_ref_radiance=True)
+  train_cfg = dataclasses.replace(
+      config_lib.nerf_ds_train_config(batch_size=512),
+      warp_alpha_schedule=('constant', 4.0),
+      norm_input_alpha_schedule=('constant', 4.0))
+  scalars = step_lib.eval_schedules(step_lib.build_schedules(train_cfg), 0)
+
+  def grads(device, batch):
+    model = NerfDSModel(model_cfg, num_warp_embeds=4, num_hyper_embeds=4,
+                        near=source.near, far=source.far, device=device)
+    to = lambda x: ({k: to(v) for k, v in x.items()} if isinstance(x, dict)
+                    else t(x).to(device))
+    g, stats = step_lib._grads(step_lib.make_loss_fn(model, train_cfg),
+                               dict(model.named_parameters()), to(batch),
+                               None, scalars)
+    assert np.isfinite(float(stats['fine']['loss/rgb']))
+    return {k: v.cpu() for k, v in g.items()}
+
+  return grads, batch
+
+
+def sigma_normals_floor(grads, batch):
+  """The step's own float32 floor on the CPU: the worst tensor's
+  |g' − g| / |g| with the rays' origins moved by one ulp."""
+  nudged = dict(batch, origins=np.nextafter(batch['origins'],
+                                            np.float32(np.inf)))
+  return worst_rel(grads('cpu', nudged), grads('cpu', batch))
+
+
+def test_sigma_normals_step_float32_floor():
+  """With ∇σ feeding the colour, the step at initialisation is far more
+  sensitive to float32 rounding than config[2]'s: normalize(∇σ) multiplies
+  it by 1/|∇σ|, and |∇σ| is small wherever the fresh density is nearly
+  flat. A one-ulp move of the origins moves the worst gradient by more
+  than 1e-3 of its norm (6.9e-2, the coarse σ head's, when measured), so
+  the card test below holds the card within twice this floor."""
+  grads, batch = sigma_normals_step()
+  assert sigma_normals_floor(grads, batch) > 1e-3
+
+
+@pytest.mark.cuda
+def test_sigma_normals_step_on_card_matches_cpu(cuda):
+  """One step of the radiance variant (a) on the card (K1f, K1b with a
+  σ-only head and Ḡ from the rgb loss, K2) against the same step on the
+  CPU (their plain versions), from the same params and batch: within
+  twice the step's own float32 floor."""
+  grads, batch = sigma_normals_step()
+  names = ('fused_trunk_fwd', 'fused_trunk_bwd', 'composite_fwd')
+  before = {k: kernels.launch_counts[k] for k in names}
+  on_card = grads(cuda, batch)
+  assert all(kernels.launch_counts[k] == before[k] + 2 for k in names)
+  floor = sigma_normals_floor(grads, batch)
+  assert worst_rel(on_card, grads('cpu', batch)) < max(1e-3, 2 * floor)

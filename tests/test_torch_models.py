@@ -183,11 +183,9 @@ def test_convert_round_trip():
 
 
 def test_unsupported_features_raise():
-  for flag in (dict(use_bone=True), dict(use_hyper_c=True),
-               dict(norm_supervision_type='canonical'),
-               dict(remat_feat=True), dict(sigma_gradient_mode='jvp'),
-               dict(remat_sigma=True), dict(norm_type='layer'),
-               dict(use_ref_radiance=True)):
+  for flag in (dict(use_bone=True), dict(use_nerf_embed=True),
+               dict(remat_feat=True), dict(concat_dense_inputs=True),
+               dict(remat_sigma=True), dict(norm_type='layer')):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
       TorchModel(small(tconfig.nerf_ds(), **flag), device='cpu')
 
