@@ -72,15 +72,32 @@
    against the plain path's ('vmap', plain compositing); (d) the train CLI
    with ``--preset hypernerf`` and config[2]'s overrides, 6 steps, its
    ``summaries/metrics.jsonl`` holding the elastic loss.
-12. Prints one JSON line describing every kernel, the two bf16 modes of
+12. The radiance variants: K1f and K1b at a σ-only head and without a
+   bottleneck; (a) ∇σ as the colour's normal, (b) hyper-c with the
+   'canonical' target, (c) the 'direct' target with every rgb condition,
+   12 steps each against the plain path; the ∇σ modes; a train CLI.
+13. The model variants outside ``nerf_ds()``, 12 steps each against their
+   plain twins ('vmap', plain compositing) within max(1e-3, twice the
+   step's float32 floor), each with its steady step and peak memory: (a)
+   ``vanilla_nerf()`` (K2 once a step) and its 128x128 render, held
+   against the CPU's step too; (b) ``concat_dense_inputs`` and one step of
+   'naive' + ``concat_dense_inputs``; (c) the bone field with its
+   background loss, and the train CLI with its overrides; (d) the
+   appearance embedding as an rgb condition ('fused') and an alpha
+   condition too ('vmap'); (e) the 'layer' and 'group' norms ('vmap'),
+   held against the CPU's step too; (f) ``remat_feat`` and ``remat_sigma``
+   'nothing' and 'dots', their gradients within 1e-5 of the run without
+   remat, the peak memory of both.
+14. Prints one JSON line describing every kernel, the two bf16 modes of
    the trunk kernels included ("launches": the render's count for K1f and
    K2, the training run's for K1b, the eval path's for K3, phase 10(c)'s
    for the bf16 modes; "launches_render", "launches_train",
-   "launches_capture", "launches_speed_modes" and "launches_deformation"
-   for all six), a line of the training numbers, a line of the eval
-   numbers, a line of the capture numbers, a line of the speed modes'
-   numbers, a line of the deformation family's, the card's line, and as
-   the last line ``{"ok": true, "device": {...}}``. K2's and K3's
+   "launches_capture", "launches_speed_modes", "launches_deformation",
+   "launches_radiance" and "launches_variants" for all six), a line of the
+   training numbers, a line of the eval numbers, a line of the capture
+   numbers, a line each of the speed modes', the deformation family's, the
+   radiance variants' and the model variants' numbers, the card's line,
+   and as the last line ``{"ok": true, "device": {...}}``. K2's and K3's
    entries hold their times at every timed shape under "shapes"; K3's
    σ/normal head there also holds its library call's time
    (``F.linear``).
@@ -1486,7 +1503,8 @@ def train_mode(torch, device, trainer, name, cfg, plain_cfg=None,
 
   def log_fn(step, log):
     stats = log['stats']
-    losses.append(stats['fine']['loss/total'])
+    losses.append(stats['fine' if 'fine' in stats else 'coarse']
+                  ['loss/total'])
     for *level, key in stat_keys:
       value = (stats[level[0]] if level else stats).get(key, float('nan'))
       if not np.isfinite(value):
@@ -1508,6 +1526,7 @@ def train_mode(torch, device, trainer, name, cfg, plain_cfg=None,
     return launches, out
   plain = NerfDSModel(plain_cfg, num_warp_embeds=run.model.num_warp_embeds,
                       num_hyper_embeds=run.model.num_hyper_embeds,
+                      num_nerf_embeds=run.model.num_nerf_embeds,
                       near=run.model.near, far=run.model.far, device=device)
   scalars = step_lib.eval_schedules(step_lib.build_schedules(train_cfg),
                                     state.step)
@@ -2069,6 +2088,292 @@ def phase_radiance(torch, device, trainer, train):
   return launches, out
 
 
+# Phase 13: the model variants outside nerf_ds(), at full width on the train
+# phase's store (the appearance cases on a store of the same scene that
+# carries appearance ids).
+VARIANT_STEPS = 12
+VARIANT_CLI_STEPS = 6
+# Rays of the card-against-CPU check of (a) and (e).
+VARIANT_CPU_RAYS = 64
+BONE_LOSS = dict(use_background_loss=True, background_loss_weight=1.0)
+
+
+def sub_batch(batch, n):
+  """The first ``n`` rays of a batch (its metadata too)."""
+  return {k: sub_batch(v, n) if isinstance(v, dict) else v[:n]
+          for k, v in batch.items()}
+
+
+def variant_model(torch, run, cfg, device):
+  """``cfg`` with ``run``'s embedding counts and bounds on ``device``."""
+  m = run.model
+  return type(m)(cfg, num_warp_embeds=m.num_warp_embeds,
+                 num_hyper_embeds=m.num_hyper_embeds,
+                 num_nerf_embeds=m.num_nerf_embeds, near=m.near, far=m.far,
+                 device=device)
+
+
+def grad_rels(torch, got, want):
+  return {k: ((got[k].cpu() - w.cpu()).norm()
+              / w.cpu().norm().clamp_min(1e-30)).item()
+          for k, w in want.items()}
+
+
+def steady_and_peak(torch, device, model, train_cfg, store, state,
+                    background_points=None):
+  """(ms a steady step, peak GiB) of ``model``'s fused step from ``state``."""
+  from nerfds_torch.training import step as step_lib
+  step_fn = step_lib.make_fused_train_step(model, train_cfg, store,
+                                           background_points)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  seconds = steady_step_s(torch, device, step_fn, state)
+  return 1e3 * seconds, torch.cuda.max_memory_allocated() / 2**30
+
+
+def card_against_cpu(torch, device, name, cfg, run, train_cfg, state, batch,
+                     scalars):
+  """The plain path's gradients on the card against the CPU's, on the first
+  ``VARIANT_CPU_RAYS`` rays of ``batch`` with unstratified samples and no σ
+  noise (the two devices' generators draw different numbers): within
+  max(1e-3, twice the card step's float32 floor)."""
+  import dataclasses
+  from nerfds_torch.training import step as step_lib
+  det = dataclasses.replace(cfg, use_stratified_sampling=False,
+                            noise_std=None, sigma_gradient_mode='vmap',
+                            use_pallas_compositing=False)
+  sub = sub_batch(batch, VARIANT_CPU_RAYS)
+  card = variant_model(torch, run, det, device)
+  cpu = variant_model(torch, run, det, 'cpu')
+  on_card, _ = step_lib._grads(step_lib.make_loss_fn(card, train_cfg),
+                               state.params, sub, None, scalars)
+  on_cpu, _ = step_lib._grads(
+      step_lib.make_loss_fn(cpu, train_cfg),
+      {k: v.cpu() for k, v in state.params.items()},
+      sub_batch({k: ({kk: vv.cpu() for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.cpu())
+                 for k, v in sub.items()}, VARIANT_CPU_RAYS), None, scalars)
+  floor = float32_floor(torch, device, card, train_cfg, state, sub, scalars)
+  return check_grads(f'{name}, card against the CPU', grad_rels(
+      torch, on_card, on_cpu), floor)
+
+
+def phase_variants(torch, device, trainer):
+  """Phase 13: the model variants outside nerf_ds() at full width, batch
+  512, the preset's schedules compressed as in phase 12. Each case trains 12
+  steps through Trainer.train with its launch counts checked, its gradients
+  held against its plain twin ('vmap', plain compositing) on one state and
+  batch within max(1e-3, twice the step's float32 floor), and its steady
+  step and peak memory timed: (a) vanilla_nerf() (BASELINE config[0],
+  coarse only, 64 samples; K2 once a step) and a 128x128 render (K2 once a
+  chunk); (b) concat_dense_inputs, 'fused', and one step of the reference
+  pattern 'naive' + concat_dense_inputs (K2 only); (c) the bone warp field
+  with its background loss, 'fused', and the train CLI with (c)'s
+  overrides; (d) the appearance embedding as an rgb condition ('fused')
+  and as an alpha condition too ('vmap', as JAX takes it), on a store with
+  appearance ids; (e) norm_type 'layer' and 'group' ('vmap': K1 has no
+  norm); (f) remat_feat ('fused') and remat_sigma 'nothing' and 'dots'
+  ('vmap'), their gradients within 1e-5 of the same path's without remat
+  and the peak memory of both. (a) and (e) are also held against the CPU's
+  step on the same rays."""
+  import dataclasses
+  import tempfile
+  from pathlib import Path
+  import numpy as np
+  from nerfds_torch import config as config_lib
+  from nerfds_torch import kernels
+  from nerfds_torch import train as train_cli
+  from nerfds_torch.datasets import SyntheticDataSource
+  from nerfds_torch.evaluation import render as render_lib
+  from nerfds_torch.models import default_extra_params
+  from nerfds_torch.trainer import Trainer
+  from nerfds_torch.training import step as step_lib
+  print(f'== model variants at full width, batch {TRAIN_BATCH}, '
+        f'{VARIANT_STEPS} steps each: (a) vanilla_nerf, (b) '
+        'concat_dense_inputs, (c) the bone field, (d) the appearance '
+        'embedding, (e) hidden norms, (f) remat')
+  phase_start = time.perf_counter()
+  # The schedules compressed to the train phase's run, as in phase 12
+  # (compressed to fewer than about 20 steps, the sharpening schedule is
+  # NaN at step 0, in both packages).
+  train_cfg = dataclasses.replace(
+      config_lib.nerf_ds_train_config(max_steps=TRAIN_STEPS,
+                                      batch_size=TRAIN_BATCH,
+                                      scale_schedules=True), print_every=1)
+  base = dataclasses.replace(config_lib.nerf_ds(), use_pallas_compositing=True)
+  k1 = dict(fused_trunk_fwd=2, fused_trunk_bwd=2, composite_fwd=2)
+  out, launches = {}, {}
+
+  def case(name, cfg, want, run_trainer=None, case_train_cfg=None,
+           cpu_check=False):
+    """Trains ``cfg`` and holds it against its plain twin; returns the
+    run's state, batch and scalars."""
+    tc = case_train_cfg or train_cfg
+    plain_cfg = dataclasses.replace(cfg, sigma_gradient_mode='vmap',
+                                    use_pallas_compositing=False)
+    launches[name], out[name], rels, (state, batch, scalars, run) = (
+        train_mode(torch, device, run_trainer or trainer, name, cfg,
+                   plain_cfg=plain_cfg, train_cfg=tc, steps=VARIANT_STEPS,
+                   **want))
+    plain = variant_model(torch, run, plain_cfg, device)
+    floor = float32_floor(torch, device, plain, tc, state, batch, scalars)
+    out[name]['grad_floor_worst'] = max(floor.values())
+    out[name]['grad_bound'] = check_grads(name, rels, floor)
+    if cpu_check:
+      out[name]['cpu_bound'] = card_against_cpu(
+          torch, device, name, cfg, run, tc, state, batch, scalars)
+    store = (run_trainer or trainer).build_store()
+    out[name]['step_ms'], out[name]['peak_gib'] = steady_and_peak(
+        torch, device, run.model, tc, store, state, run.background_points())
+    print(f'  {name}: steady step {out[name]["step_ms"]:.1f} ms, peak '
+          f'{out[name]["peak_gib"]:.2f} GiB')
+    return state, batch, scalars, run
+
+  # (a) BASELINE config[0]: coarse only, no ∇σ, K2 once a step.
+  vanilla = dataclasses.replace(config_lib.vanilla_nerf(),
+                                use_pallas_compositing=True)
+  state, _, _, run = case('vanilla_nerf', vanilla, dict(composite_fwd=1),
+                          cpu_check=True)
+  size, chunk = 128, 4096
+  plain = variant_model(torch, run, dataclasses.replace(
+      vanilla, use_pallas_compositing=False), device)
+  for model in (run.model, plain):
+    model.load_state_dict({k: v.detach() for k, v in state.params.items()})
+  rays = pinhole_rays(size, run.model.num_warp_embeds)
+  extra = default_extra_params(vanilla)
+  gen = lambda: torch.Generator(device=device).manual_seed(0)
+  kernels.reset_launch_counts()
+  start = time.perf_counter()
+  image = render_lib.render_image(run.model, rays, extra, generator=gen(),
+                                  chunk=chunk)
+  torch.cuda.synchronize()
+  render_s = time.perf_counter() - start
+  render_launches = dict(kernels.launch_counts)
+  check_launches('vanilla_nerf 128x128 render', render_launches,
+                 composite_fwd=-(-size * size // chunk))
+  ref = render_lib.render_image(plain, rays, extra, generator=gen(),
+                                chunk=chunk)
+  for k in ('rgb', 'depth', 'acc'):
+    if not np.isfinite(image[k]).all():
+      raise AssertionError(f'vanilla_nerf render {k}: non-finite')
+    # Tolerance as in phase 4: float32; K2 sums in another order than
+    # torch.cumprod.
+    compare(torch, f'vanilla_nerf render {k}', torch.from_numpy(image[k]),
+            torch.from_numpy(ref[k]), 1e-4, 1e-4)
+  out['vanilla_nerf']['render_s'] = render_s
+  out['vanilla_nerf']['render_launches'] = render_launches
+  print(f'  vanilla_nerf render {size}x{size}: {render_s:.3f} s, launches '
+        f'{render_launches}')
+  del state, run, plain, image, ref
+
+  # (b) concat_dense_inputs, 'fused'; then the reference pattern.
+  concat = dataclasses.replace(base, concat_dense_inputs=True,
+                               sigma_gradient_mode='fused')
+  case('concat_dense_inputs', concat, k1)
+  naive = dataclasses.replace(concat, sigma_gradient_mode='naive')
+  launches['naive_concat'], out['naive_concat'] = train_mode(
+      torch, device, trainer, "'naive' + concat_dense_inputs", naive,
+      train_cfg=train_cfg, steps=1, composite_fwd=2)
+
+  # (c) The bone field with its background loss on the store's points.
+  bone_cfg = dict(use_bone=True, sigma_gradient_mode='fused')
+  bone = dataclasses.replace(base, **bone_cfg)
+  bone_train = dataclasses.replace(train_cfg, **BONE_LOSS)
+  case('bone', bone, dict(k1, stat_keys=(('loss/background',),)),
+       case_train_cfg=bone_train)
+  overrides = [f'model.{k}={v}' for k, v in bone_cfg.items()] + [
+      'model.use_pallas_compositing=True'] + [
+          f'train.{k}={v}' for k, v in BONE_LOSS.items()]
+  with tempfile.TemporaryDirectory() as tmp:
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    cli_state, metrics, _ = train_cli.main([
+        '--preset', 'nerf_ds', '--datasource', 'synthetic', '--exp_dir', tmp,
+        '--batch_size', str(TRAIN_BATCH), '--max_steps',
+        str(VARIANT_CLI_STEPS), *(a for kv in overrides
+                                  for a in ('--set', kv))])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - start
+    cli = dict(kernels.launch_counts)
+    logged = [json.loads(x) for x in (
+        Path(tmp) / 'summaries' / 'metrics.jsonl').read_text().splitlines()]
+  background = [x.get('train/loss/background') for x in logged]
+  print(f'  train CLI --preset nerf_ds with (c)\'s overrides: '
+        f'{VARIANT_CLI_STEPS} steps and its closing eval in {cli_s:.1f} s, '
+        f'launches {cli}, val psnr {metrics["psnr"]:.2f}, logged background '
+        f'loss {background}')
+  if (cli_state.step != VARIANT_CLI_STEPS or not np.isfinite(metrics['psnr'])
+      or not any(x is not None for x in background)
+      or not all(np.isfinite(x) for x in background if x is not None)
+      or cli['fused_trunk_bwd'] != 2 * VARIANT_CLI_STEPS
+      or cli['fused_trunk_fwd'] < 2 * VARIANT_CLI_STEPS
+      or cli['composite_fwd'] < 2 * VARIANT_CLI_STEPS
+      or cli['composite_fwd'] % 2
+      or sum(cli.values()) != (cli['composite_fwd'] + cli['fused_trunk_fwd']
+                               + cli['fused_trunk_bwd'])):
+    raise AssertionError(f'train CLI bone: step {cli_state.step}, launches '
+                         f'{cli}, metrics {metrics}, logged {logged}')
+  out['bone']['cli'] = dict(seconds=cli_s, launches=cli,
+                            psnr=metrics['psnr'])
+
+  # (d) The appearance embedding, on a store that carries appearance ids.
+  start = time.perf_counter()
+  source = SyntheticDataSource(num_frames=8, image_size=64,
+                               use_appearance_id=True)
+  appearance = Trainer.from_experiment(base, train_cfg, source)
+  ids = appearance.build_store().metadata['appearance']
+  print(f'  appearance store: {time.perf_counter() - start:.2f} s, '
+        f'{int(ids.max()) + 1} appearance ids')
+  embed = dict(use_nerf_embed=True, use_rgb_condition=True)
+  case('appearance_rgb', dataclasses.replace(
+      base, **embed, sigma_gradient_mode='fused'), k1, run_trainer=appearance)
+  case('appearance_alpha', dataclasses.replace(
+      base, **embed, use_alpha_condition=True, sigma_gradient_mode='fused'),
+       dict(composite_fwd=2), run_trainer=appearance)
+  del appearance, source
+
+  # (e) The hidden norms: 'fused' is taken as 'vmap' (K1 has no norm).
+  for norm in ('layer', 'group'):
+    case(f'norm_{norm}', dataclasses.replace(
+        base, norm_type=norm, sigma_gradient_mode='fused'),
+         dict(composite_fwd=2), cpu_check=True)
+
+  # (f) remat: the gradients and peak memory of the same path without it.
+  for name, flags, mode, want in (
+      ('remat_feat', dict(remat_feat=True), 'fused', k1),
+      ('remat_sigma_nothing', dict(remat_sigma=True), 'vmap',
+       dict(composite_fwd=2)),
+      ('remat_sigma_dots', dict(remat_sigma=True, remat_policy='dots'),
+       'vmap', dict(composite_fwd=2))):
+    cfg = dataclasses.replace(base, **flags, sigma_gradient_mode=mode)
+    state, batch, scalars, run = case(name, cfg, want)
+    without = variant_model(torch, run, dataclasses.replace(
+        cfg, remat_feat=False, remat_sigma=False), device)
+    g = lambda: torch.Generator(device=device).manual_seed(321)
+    got, _ = step_lib._grads(step_lib.make_loss_fn(run.model, train_cfg),
+                             state.params, batch, g(), scalars)
+    want_g, _ = step_lib._grads(step_lib.make_loss_fn(without, train_cfg),
+                                state.params, batch, g(), scalars)
+    rels = grad_rels(torch, got, want_g)
+    worst = max(rels, key=rels.get)
+    out[name]['remat_rel_worst'] = rels[worst]
+    out[name]['without_step_ms'], out[name]['without_peak_gib'] = (
+        steady_and_peak(torch, device, without, train_cfg,
+                        trainer.build_store(), state))
+    print(f'  {name}: gradients against the run without remat worst '
+          f'{rels[worst]:.3e} ({worst}); peak {out[name]["peak_gib"]:.2f} '
+          f'GiB with remat, {out[name]["without_peak_gib"]:.2f} GiB without;'
+          f' steady step {out[name]["step_ms"]:.1f} ms with, '
+          f'{out[name]["without_step_ms"]:.1f} ms without')
+    if rels[worst] > 1e-5:
+      raise AssertionError(f'{name}: gradients {rels[worst]:.2e} from the '
+                           'run without remat')
+    del state, batch, run, without, got, want_g
+  out['wall_s'] = time.perf_counter() - phase_start
+  print(f'  phase 13 wall time: {out["wall_s"]:.1f} s')
+  return launches, out
+
+
 def check_launches(name, launches, **want):
   """``launches`` must hold the counts in ``want``, and 0 for every other
   kernel."""
@@ -2194,6 +2499,10 @@ def main() -> int:
   for r in results:
     r['launches_radiance'] = {mode: counts[r['name']]
                               for mode, counts in radiance_launches.items()}
+  variants_launches, variants = phase_variants(torch, device, trainer)
+  for r in results:
+    r['launches_variants'] = {mode: counts[r['name']]
+                              for mode, counts in variants_launches.items()}
   for r in results:
     r['launches_speed_modes'] = {mode: counts[r['name']]
                                  for mode, counts in speed_launches.items()}
@@ -2210,6 +2519,7 @@ def main() -> int:
   print('speed modes: ' + json.dumps(speed))
   print('deformation: ' + json.dumps(deformation))
   print('radiance: ' + json.dumps(radiance))
+  print('variants: ' + json.dumps(variants))
   print(f'card: {card_line()}')
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@ intrinsics with radial/tangential distortion, in numpy.
 
 The same JSON schema, Newton undistortion (10 iterations), +0.5 pixel
 centres and world-space ray construction as the JAX package. Ray
-generation runs once, on the host, when a dataset is built. The JAX
-package's differentiable ``project_jnp`` is not ported.
+generation runs once, on the host, when a dataset is built.
+:meth:`Camera.project_torch`, the counterpart of the JAX package's
+``project_jnp``, projects torch points differentiably, on their device.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 
 def _compute_residual_and_jacobian(x, y, xd, yd, k1=0.0, k2=0.0, k3=0.0,
@@ -232,6 +234,33 @@ class Camera:
                + self.principal_point_y)
     pixels = np.stack([pixel_x, pixel_y], axis=-1)
     return pixels.reshape((*batch_shape, 2))
+
+  def project_torch(self, points):
+    """World points ``[..., 3]`` (a torch tensor) -> pixels ``[..., 2]``,
+    differentiably, on the points' device: :meth:`project` with local
+    coordinates below 1e-5 in magnitude set to 1e-5, as the JAX package's
+    ``project_jnp`` does."""
+    batch_shape = points.shape[:-1]
+    points = points.reshape(-1, 3)
+    like = dict(dtype=points.dtype, device=points.device)
+    translated = points - torch.as_tensor(self.position, **like)
+    local = (torch.as_tensor(self.orientation, **like) @ translated.T).T
+    eps = 1e-5
+    local = torch.where(local.abs() < eps, torch.full_like(local, eps), local)
+    x = local[..., 0] / local[..., 2]
+    y = local[..., 1] / local[..., 2]
+    r2 = x ** 2 + y ** 2
+    k1, k2, k3 = (float(k) for k in self.radial_distortion)
+    p1, p2 = (float(p) for p in self.tangential_distortion)
+    distortion = 1.0 + r2 * (k1 + r2 * (k2 + k3 * r2))
+    x_times_y = x * y
+    xd = x * distortion + 2.0 * p1 * x_times_y + p2 * (r2 + 2.0 * x ** 2)
+    yd = y * distortion + 2.0 * p2 * x_times_y + p1 * (r2 + 2.0 * y ** 2)
+    pixel_x = (float(self.focal_length) * xd + float(self.skew) * yd
+               + float(self.principal_point_x))
+    pixel_y = (float(self.focal_length) * float(self.pixel_aspect_ratio) * yd
+               + float(self.principal_point_y))
+    return torch.stack([pixel_x, pixel_y], -1).reshape(*batch_shape, 2)
 
   def get_pixel_centers(self):
     """Pixel-center grid at +0.5 offsets."""

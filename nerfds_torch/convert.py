@@ -6,6 +6,11 @@ hidden_0/kernel``); the port's modules use the same names and the same
 
   model.load_state_dict(params_from_jax(jax.device_get(params)))
 
+Leaves that are not a layer's ``kernel``/``bias`` convert the same way: the
+GLO tables (``nerf_embed/embedding`` among them), the bone field's
+``bone_centers``, ``bone_scales`` and ``bone_quaternions``, and
+``NormVoxels``' ``voxel_array``.
+
 ``train_state_from_jax`` and ``train_state_to_jax`` do the same for a whole
 training state: the step, the params, and optax's
 ``ScaleByAdamState(count, mu, nu)`` as the port's ``AdamState``.

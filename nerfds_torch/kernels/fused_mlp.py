@@ -243,7 +243,12 @@ def mlp_params_to_layers(mlp, params: Optional[Mapping[str, Any]]
 def fused_apply(mlp, params: Optional[Mapping[str, Any]], x: torch.Tensor,
                 compute_dtype=None, tile: int = 512) -> torch.Tensor:
   """Fused, forward-only equivalent of ``mlp(x)`` for a ``models.mlp.MLP``
-  on ``params`` (see :func:`mlp_params_to_layers`), under no_grad."""
+  on ``params`` (see :func:`mlp_params_to_layers`), under no_grad. K3 has
+  no hidden norm, so an MLP with one is refused (the JAX package's
+  ``fused_apply`` drops the norm without a word)."""
+  if getattr(mlp, 'hidden_norm', None) not in (None, 'none'):
+    raise ValueError(f'fused_apply: K3 has no hidden norm, and this MLP '
+                     f'has hidden_norm={mlp.hidden_norm!r}')
   layers, has_output = mlp_params_to_layers(mlp, params)
   layers = [(w.to(x.device), b.to(x.device)) for w, b in layers]
   with torch.no_grad():

@@ -24,7 +24,7 @@ class HyperSheetMLP(nn.Module):
                min_deg: int = 0, max_deg: int = 1, depth: int = 6,
                width: int = 64, skips: Tuple[int, ...] = (4,),
                use_residual: bool = False, point_dim: int = 3,
-               generator=None):
+               generator=None, concat_input: bool = False):
     super().__init__()
     self.min_deg, self.max_deg = min_deg, max_deg
     self.use_residual = use_residual
@@ -32,7 +32,8 @@ class HyperSheetMLP(nn.Module):
     self.mlp = mlp_lib.MLP(in_dim, depth, width, skips, 'relu',
                            output_channels=output_channels,
                            output_init=mlp_lib.normal_init(1e-5),
-                           generator=generator)
+                           generator=generator,
+                           concat_input=concat_input)
 
   def forward(self, points: torch.Tensor, embed: Optional[torch.Tensor],
               alpha=None, dtype=None, storage_dtype=None) -> torch.Tensor:
@@ -51,7 +52,8 @@ class MaskMLP(nn.Module):
   def __init__(self, embed_dim: int, output_channels: int = 1,
                min_deg: int = 0, max_deg: int = 6, depth: int = 8,
                width: int = 128, skips: Tuple[int, ...] = (4,),
-               output_activation: Optional[str] = 'relu', generator=None):
+               output_activation: Optional[str] = 'relu', generator=None,
+               concat_input: bool = False):
     super().__init__()
     self.min_deg, self.max_deg = min_deg, max_deg
     in_dim = math_ops.posenc_dim(3, min_deg, max_deg) + embed_dim
@@ -59,7 +61,8 @@ class MaskMLP(nn.Module):
                            output_channels=output_channels,
                            output_activation=output_activation,
                            output_init=mlp_lib.normal_init(1e-5),
-                           generator=generator)
+                           generator=generator,
+                           concat_input=concat_input)
 
   def forward(self, points: torch.Tensor, embed: torch.Tensor, alpha=None,
               use_embed: bool = True, dtype=None,

@@ -10,6 +10,13 @@ A dense layer may take a list of feature blocks: the list stands for their
 concatenation, and each block multiplies its own rows of the kernel
 (``concat([a, b]) @ W == a @ W[:da] + b @ W[da:]``), as in the JAX package.
 
+With ``concat_input`` an MLP materialises the concatenation with
+``torch.cat`` before the layer instead (the reference's op graph, the
+``concat_dense_inputs`` flag); the kernel is the same ``[in, out]`` tensor.
+``hidden_norm`` ('layer', 'group' or 'batch') normalises each hidden
+layer's output before its activation, without a learned affine
+(:func:`apply_norm`).
+
 Two precision modes, as in the JAX package (``config.compute_dtype`` and
 ``config.storage_dtype``): ``dtype=torch.bfloat16`` runs the stack's
 products, bias adds and activations in bf16 and returns float32;
@@ -71,6 +78,44 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor],
   }[name]
 
 
+def apply_norm(x: torch.Tensor, norm_type: Optional[str],
+               num_groups: int = 32, pointwise: bool = False) -> torch.Tensor:
+  """Parameter-free normalisation between a Dense and its activation.
+
+  'layer' over the channels, 'group' over ``min(num_groups, C)`` equal
+  groups of channels, 'batch' over every leading axis with the batch's own
+  statistics (there are no running averages, as in the JAX package).
+  ``pointwise=True`` gives each row its own batch of one, the statistics
+  the JAX package's per-point σ function sees ('vmap' and 'naive' take
+  ∇σ by ``vmap(value_and_grad)`` over single points): its 'batch' output
+  is then 0."""
+  if norm_type is None or norm_type == 'none':
+    return x
+  if norm_type == 'layer':
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + 1e-6)
+  if norm_type == 'group':
+    c = x.shape[-1]
+    groups = min(num_groups, c)
+    if c % groups != 0:
+      raise ValueError(f'channels {c} not divisible by {groups} groups')
+    g = x.reshape(*x.shape[:-1], groups, c // groups)
+    mean = g.mean(-1, keepdim=True)
+    var = ((g - mean) ** 2).mean(-1, keepdim=True)
+    return ((g - mean) * torch.rsqrt(var + 1e-6)).reshape(x.shape)
+  if norm_type == 'batch':
+    if pointwise:
+      mean = x
+      var = (x - mean) ** 2
+    else:
+      axes = tuple(range(x.dim() - 1))
+      mean = x.mean(axes, keepdim=True)
+      var = ((x - mean) ** 2).mean(axes, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + 1e-5)
+  raise ValueError(f'Unknown norm type {norm_type!r}')
+
+
 def quantize_storage(x: torch.Tensor, storage_dtype) -> torch.Tensor:
   """``x`` rounded through ``storage_dtype`` (bf16) and back: the value a
   narrow activation buffer would hold. Plain casts, so autograd (second
@@ -127,6 +172,7 @@ class MLP(nn.Module):
   """Dense stack with input re-feed skips and an optional output layer.
 
   At a skip layer the input is ``[h, inputs]``, in that order.
+  ``hidden_norm`` and ``concat_input``: see the module's docstring.
   """
 
   def __init__(self, in_dim: int, depth: int, width: int,
@@ -134,11 +180,15 @@ class MLP(nn.Module):
                output_channels: int = 0,
                output_activation: Optional[str] = None,
                use_bias: bool = True, hidden_init: Init = glorot_uniform,
-               output_init: Optional[Init] = None, generator=None):
+               output_init: Optional[Init] = None, generator=None,
+               hidden_norm: Optional[str] = None,
+               concat_input: bool = False):
     super().__init__()
     self.in_dim = in_dim
     self.depth, self.width, self.skips = depth, width, tuple(skips)
     self.hidden_activation = hidden_activation
+    self.hidden_norm = hidden_norm
+    self.concat_input = concat_input
     self.output_channels = output_channels
     self.output_activation = output_activation
     for i in range(depth):
@@ -153,14 +203,17 @@ class MLP(nn.Module):
   def hidden(self, i: int) -> Dense:
     return getattr(self, f'hidden_{i}')
 
-  def forward(self, x: Blocks, dtype=None, storage_dtype=None
-              ) -> torch.Tensor:
+  def forward(self, x: Blocks, dtype=None, storage_dtype=None,
+              pointwise_norm: bool = False) -> torch.Tensor:
     """``dtype``: the inputs are cast once, the layers run in it and the
     output comes back in the inputs' dtype. ``storage_dtype``: each
     stored activation (the inputs and every hidden output) is quantised
-    through it; ignored when ``dtype`` is set."""
+    through it; ignored when ``dtype`` is set. ``pointwise_norm``: the
+    'batch' norm's statistics are each row's own (:func:`apply_norm`)."""
     act = get_activation(self.hidden_activation)
     inputs = list(x) if isinstance(x, (list, tuple)) else [x]
+    if self.concat_input and len(inputs) > 1:
+      inputs = [torch.cat(inputs, -1)]
     out_dtype = inputs[0].dtype
     if dtype is not None:
       inputs = [p.to(dtype) for p in inputs]
@@ -171,7 +224,10 @@ class MLP(nn.Module):
       layer_in = inputs if i == 0 else [h]
       if i in self.skips:
         layer_in = layer_in + inputs
-      h = act(dense_apply(self.hidden(i), layer_in, dtype))
+        if self.concat_input:
+          layer_in = [torch.cat(layer_in, -1)]
+      h = act(apply_norm(dense_apply(self.hidden(i), layer_in, dtype),
+                         self.hidden_norm, pointwise=pointwise_norm))
       if dtype is None:
         h = quantize_storage(h, storage_dtype)
     out = h if self.depth > 0 else inputs
@@ -198,7 +254,9 @@ class NerfMLP(nn.Module):
                rgb_branch_width: int = 128, rgb_channels: int = 3,
                alpha_channels: int = 1, activation: str = 'relu',
                skips: Tuple[int, ...] = (4,), predict_norm: bool = False,
-               norm_dim: int = 3, generator=None):
+               norm_dim: int = 3, generator=None,
+               hidden_norm: Optional[str] = None,
+               concat_input: bool = False):
     super().__init__()
     self.trunk_width = trunk_width
     self.alpha_channels = alpha_channels
@@ -206,8 +264,10 @@ class NerfMLP(nn.Module):
     self.skips = tuple(skips)
     self.predict_norm = predict_norm
     self.norm_dim = norm_dim
+    self.concat_input = concat_input
     self.trunk = MLP(in_dim, trunk_depth, trunk_width, skips, activation,
-                     generator=generator)
+                     generator=generator, hidden_norm=hidden_norm,
+                     concat_input=concat_input)
     self.bottleneck = (Dense(trunk_width, trunk_width, generator=generator)
                        if has_condition else None)
     alpha_in = trunk_width + alpha_cond_dim
@@ -216,10 +276,13 @@ class NerfMLP(nn.Module):
         generator=generator)
     self.rgb = MLP(trunk_width + rgb_cond_dim, rgb_branch_depth,
                    rgb_branch_width, hidden_activation=activation,
-                   output_channels=rgb_channels, generator=generator)
+                   output_channels=rgb_channels, generator=generator,
+                   hidden_norm=hidden_norm, concat_input=concat_input)
 
-  def query_bottleneck(self, x: Blocks, dtype=None, storage_dtype=None):
-    trunk_out = self.trunk(x, dtype=dtype, storage_dtype=storage_dtype)
+  def query_bottleneck(self, x: Blocks, dtype=None, storage_dtype=None,
+                       pointwise_norm: bool = False):
+    trunk_out = self.trunk(x, dtype=dtype, storage_dtype=storage_dtype,
+                           pointwise_norm=pointwise_norm)
     if self.bottleneck is None:
       return trunk_out, trunk_out
     bottleneck = dense_apply(self.bottleneck, trunk_out, dtype)
@@ -233,6 +296,8 @@ class NerfMLP(nn.Module):
                   dtype=None):
     alpha_in = ([bottleneck, alpha_condition] if alpha_condition is not None
                 else trunk_out)
+    if self.concat_input and isinstance(alpha_in, list):
+      alpha_in = torch.cat(alpha_in, -1)
     out = self.alpha(alpha_in, dtype=dtype)
     sigma = out[..., :self.alpha_channels]
     norm = (out[..., self.alpha_channels:self.alpha_channels + self.norm_dim]

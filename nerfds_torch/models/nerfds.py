@@ -56,13 +56,27 @@ port never reads ``matmul_precision``: where JAX picks bf16 for K1 through
 ``matmul_precision=None`` alone, the port stays f32 (ROADMAP.md, the
 stated precision deviation).
 
-One deliberate difference: with ``use_sigma_gradient`` the colour itself
+Every other flag of ``ModelConfig`` runs as well: the ``vanilla_nerf``
+preset, ``concat_dense_inputs`` (every MLP materialises its concatenated
+inputs), the appearance embedding (``use_nerf_embed``, an alpha and an rgb
+condition), ``norm_type`` (the NeRF MLP's hidden norm), ``remat_sigma`` and
+``remat_feat`` (``models/remat.py``) and the bone warp field
+(``use_bone``, ``models/bones.py``).
+
+Where the JAX package itself takes 'vmap' for 'fused' (a non-relu
+activation, an alpha condition), so does the port, and it also does so
+under ``norm_type``: the trunk kernel has no norm (JAX's 'fused' drops the
+norm; ROADMAP.md, queue 3). Under ``norm_type='batch'``, 'vmap' and 'naive'
+give each point its own batch of one, as JAX's per-point
+``vmap(value_and_grad)`` does (``mlp.apply_norm``).
+
+Two deliberate differences: with ``use_sigma_gradient`` the colour itself
 reads ∇σ, so ∇σ is taken even where the caller passes
 ``compute_sigma_gradient=False`` (the eval renderer); the JAX package then
-has no normal for the colour and fails.
-
-Flags outside that set raise ``NotImplementedError``; ROADMAP.md queues
-them.
+has no normal for the colour and fails. And where ∇σ is taken,
+``remat_sigma`` recomputes σ together with its ∇σ ('jvp': the whole
+three-tangent push, whose tangents ``torch.utils.checkpoint`` cannot
+recompute alone); the numbers are those without remat.
 """
 from __future__ import annotations
 
@@ -76,9 +90,11 @@ from torch import nn
 from nerfds_torch.config import ModelConfig
 from nerfds_torch.device import resolve_device
 from nerfds_torch.kernels import fused_trunk
+from nerfds_torch.models.bones import BoneSE3Field
 from nerfds_torch.models.embeddings import GLOEmbed
 from nerfds_torch.models.hyper import HyperSheetMLP, MaskMLP
 from nerfds_torch.models.mlp import NerfMLP, get_activation
+from nerfds_torch.models.remat import REMAT_POLICIES, remat
 from nerfds_torch.models.warp import (DualQuaternionField, SE3Field,
                                       TranslationField)
 from nerfds_torch.ops import dual_quaternion as dq_lib
@@ -88,22 +104,10 @@ from nerfds_torch.ops import rendering, rigid, sampling
 Tensors = Dict[str, torch.Tensor]
 
 
-def unsupported_features(cfg: ModelConfig):
-  """Names of the configured features this port does not run yet."""
-  checks = {
-      'use_bone': cfg.use_bone,
-      'use_nerf_embed': cfg.use_nerf_embed,
-      'remat_sigma': cfg.remat_sigma,
-      'remat_feat': cfg.remat_feat,
-      f'norm_type={cfg.norm_type!r}': cfg.norm_type is not None,
-      'concat_dense_inputs': cfg.concat_dense_inputs,
-  }
-  return [name for name, on in checks.items() if on]
-
-
 SIGMA_GRADIENT_MODES = ('vmap', 'fused', 'jvp', 'vjp', 'naive')
 NORM_SUPERVISION_TYPES = ('warped', 'canonical', 'direct',
                           'canonical_unwarped')
+NORM_TYPES = (None, 'none', 'layer', 'group', 'batch')
 
 
 def default_extra_params(cfg: ModelConfig) -> Dict[str, float]:
@@ -136,7 +140,7 @@ def _detach(x):
 def _warp_field(cfg: ModelConfig, metadata_dim: int, generator):
   """The field ``warp_field_type`` names, at the config's widths."""
   common = dict(min_deg=cfg.warp_min_deg, max_deg=cfg.warp_max_deg,
-                generator=generator)
+                generator=generator, concat_input=cfg.concat_dense_inputs)
   rigid_kw = dict(trunk_depth=cfg.se3_trunk_depth,
                   trunk_width=cfg.se3_trunk_width, skips=cfg.se3_skips,
                   activation=cfg.activation, **common)
@@ -161,16 +165,16 @@ class NerfDSModel(nn.Module):
                near: float = 0.2, far: float = 2.0, *,
                generator: Optional[torch.Generator] = None, device=None):
     super().__init__()
-    missing = unsupported_features(config)
-    if missing:
-      raise NotImplementedError(
-          f'nerfds_torch does not port {missing} yet; see ROADMAP.md, '
-          'queue 1')
     if config.sigma_gradient_mode not in SIGMA_GRADIENT_MODES:
       raise ValueError(f'sigma_gradient_mode={config.sigma_gradient_mode!r}'
                        f'; expected one of {SIGMA_GRADIENT_MODES}')
     if config.norm_supervision_type not in NORM_SUPERVISION_TYPES:
       raise NotImplementedError(config.norm_supervision_type)
+    if config.norm_type not in NORM_TYPES:
+      raise ValueError(f'Unknown norm type {config.norm_type!r}')
+    if config.remat_sigma and config.remat_policy not in REMAT_POLICIES:
+      raise ValueError(f'remat_policy={config.remat_policy!r} is not '
+                       f'supported; expected one of {sorted(REMAT_POLICIES)}')
     if config.use_ref_radiance and not (config.use_sigma_gradient
                                         or config.use_predicted_norm):
       raise ValueError('use_ref_radiance reflects the view direction about '
@@ -197,10 +201,19 @@ class NerfDSModel(nn.Module):
     if gen is None:
       gen = torch.Generator().manual_seed(0)
     cfg = config
+    concat = cfg.concat_dense_inputs
     if cfg.use_warp:
       self.warp_embed = GLOEmbed(num_warp_embeds, cfg.warp_embed_dims,
                                  generator=gen)
-      self.warp_field = _warp_field(cfg, self.warp_metadata_dim, gen)
+      if cfg.use_bone:
+        self.bone_warp_field = BoneSE3Field(
+            self.warp_metadata_dim, num_bones=cfg.num_bones,
+            trunk_depth=cfg.bone_trunk_depth,
+            trunk_width=cfg.bone_trunk_width,
+            moving_mlp_depth=cfg.bone_moving_mlp_depth,
+            moving_mlp_width=cfg.bone_moving_mlp_width, generator=gen)
+      else:
+        self.warp_field = _warp_field(cfg, self.warp_metadata_dim, gen)
     if self.use_hyper_embed:
       self.hyper_embed = GLOEmbed(num_hyper_embeds, cfg.hyper_embed_dims,
                                   generator=gen)
@@ -209,7 +222,10 @@ class NerfDSModel(nn.Module):
           self.hyper_metadata_dim, output_channels=cfg.hyper_num_dims,
           min_deg=cfg.hyper_sheet_min_deg, max_deg=cfg.hyper_sheet_max_deg,
           depth=cfg.hyper_sheet_depth, width=cfg.hyper_sheet_width,
-          skips=cfg.hyper_sheet_skips, generator=gen)
+          skips=cfg.hyper_sheet_skips, generator=gen, concat_input=concat)
+    if cfg.use_nerf_embed:
+      self.nerf_embed = GLOEmbed(num_nerf_embeds, cfg.nerf_embed_dims,
+                                 generator=gen)
     if cfg.use_predicted_mask:
       self.mask_embed = GLOEmbed(num_warp_embeds, cfg.mask_embed_dims,
                                  generator=gen)
@@ -217,7 +233,8 @@ class NerfDSModel(nn.Module):
           self.mask_metadata_dim, min_deg=cfg.mask_min_deg,
           max_deg=cfg.mask_max_deg, depth=cfg.mask_mlp_depth,
           width=cfg.mask_mlp_width, skips=cfg.mask_skips,
-          output_activation=cfg.mask_output_activation, generator=gen)
+          output_activation=cfg.mask_output_activation, generator=gen,
+          concat_input=concat)
     if cfg.use_hyper_c:
       self.hyper_c_embed = GLOEmbed(num_hyper_embeds, cfg.hyper_c_embed_dims,
                                     generator=gen)
@@ -229,18 +246,20 @@ class NerfDSModel(nn.Module):
           min_deg=cfg.hyper_sheet_min_deg, max_deg=cfg.hyper_sheet_max_deg,
           depth=cfg.hyper_sheet_depth, width=cfg.hyper_sheet_width,
           skips=cfg.hyper_sheet_skips, point_dim=self.hyper_c_input_dim,
-          generator=gen)
+          generator=gen, concat_input=concat)
     rgb_total = (self.rgb_condition_dim + self.extra_rgb_condition_dim
                  + self.screw_condition_dim + self.norm_input_dim)
     self.nerf = nn.ModuleDict({
         level: NerfMLP(
-            self.nerf_in_dim, 0, rgb_total, self.has_condition,
+            self.nerf_in_dim, self.alpha_condition_dim, rgb_total,
+            self.has_condition,
             trunk_depth=cfg.nerf_trunk_depth,
             trunk_width=cfg.nerf_trunk_width,
             rgb_branch_depth=cfg.nerf_rgb_branch_depth,
             rgb_branch_width=cfg.nerf_rgb_branch_width,
             activation=cfg.activation, skips=cfg.nerf_skips,
-            predict_norm=cfg.predict_norm, generator=gen)
+            predict_norm=cfg.predict_norm, generator=gen,
+            hidden_norm=cfg.norm_type, concat_input=concat)
         for level in self.levels})
     self.to(device)
 
@@ -321,14 +340,27 @@ class NerfDSModel(nn.Module):
     return 3
 
   @property
-  def rgb_condition_dim(self) -> int:
-    """Channels of the view directions' condition; with hyper-c the view
-    direction feeds the hyper-c sheet instead."""
+  def has_norm_type(self) -> bool:
+    return self.config.norm_type not in (None, 'none')
+
+  @property
+  def alpha_condition_dim(self) -> int:
     cfg = self.config
-    if not cfg.use_viewdirs or cfg.use_hyper_c:
-      return 0
-    return math_ops.posenc_dim(3, cfg.viewdir_min_deg, cfg.viewdir_max_deg,
+    return (cfg.nerf_embed_dims
+            if cfg.use_nerf_embed and cfg.use_alpha_condition else 0)
+
+  @property
+  def rgb_condition_dim(self) -> int:
+    """Channels of the rgb condition: the view directions (with hyper-c
+    they feed the hyper-c sheet instead) ⊕ the appearance embedding."""
+    cfg = self.config
+    d = 0
+    if cfg.use_viewdirs and not cfg.use_hyper_c:
+      d += math_ops.posenc_dim(3, cfg.viewdir_min_deg, cfg.viewdir_max_deg,
                                cfg.use_posenc_identity)
+    if cfg.use_nerf_embed and cfg.use_rgb_condition:
+      d += cfg.nerf_embed_dims
+    return d
 
   @property
   def screw_condition_dim(self) -> int:
@@ -372,8 +404,12 @@ class NerfDSModel(nn.Module):
   @property
   def has_condition(self) -> bool:
     """Whether the NerfMLP has a bottleneck: viewdirs count only where they
-    are fed to the rgb branch, which ``use_hyper_c`` supplants."""
-    return self.config.use_viewdirs and not self.config.use_hyper_c
+    are fed to the rgb branch, which ``use_hyper_c`` supplants; the
+    appearance embedding counts where it conditions α or rgb."""
+    cfg = self.config
+    return ((cfg.use_viewdirs and not cfg.use_hyper_c)
+            or (cfg.use_nerf_embed
+                and (cfg.use_alpha_condition or cfg.use_rgb_condition)))
 
   @property
   def levels(self):
@@ -396,9 +432,14 @@ class NerfDSModel(nn.Module):
   def encode_hyper_c_embed(self, metadata):
     return self.hyper_c_embed.encode(metadata[self.config.hyper_embed_key])
 
+  def encode_nerf_embed(self, metadata):
+    return self.nerf_embed.encode(metadata[self.config.nerf_embed_key])
+
   def encode_metadata(self, metadata) -> Tensors:
     """Pre-encodes the GLO embeddings, so chunked rendering skips lookups."""
     encoded = {}
+    if self.config.use_nerf_embed:
+      encoded['encoded_nerf'] = self.encode_nerf_embed(metadata)
     if self.config.use_warp:
       encoded['encoded_warp'] = self.encode_warp_embed(metadata)
     if self.config.has_hyper:
@@ -412,20 +453,28 @@ class NerfDSModel(nn.Module):
   # -- the σ path -----------------------------------------------------------
 
   def make_feat_fn(self, warp_in_embed, hyper_in_embed, hyper_embed,
-                   extra_params, *, use_warp=True, hyper_override=None):
+                   extra_params, *, use_warp=True, hyper_override=None,
+                   remat_feat=None):
     """p -> (trunk feature blocks, aux): the warp field, the hyper
     coordinates and the posencs, the part of the σ path before the NeRF
     trunk. The rigid fields give a motion (``aux['screw']``) that the
-    normal transport reuses; the translation field gives none. The hyper
-    coordinates are ``hyper_override`` where given (the metadata's
-    ``hyper_point``), else come from the bendy sheet, or in
-    'axis_aligned_plane' slicing are the hyper embedding itself
-    (``hyper_embed``, without the mask channel)."""
+    normal transport reuses; the translation and bone fields give none
+    (the bone field gives ``aux['moving_mask']`` and
+    ``aux['bone_weights']``). The hyper coordinates are ``hyper_override``
+    where given (the metadata's ``hyper_point``), else come from the bendy
+    sheet, or in 'axis_aligned_plane' slicing are the hyper embedding
+    itself (``hyper_embed``, without the mask channel). ``remat_feat``
+    (default: the config's) recomputes the function in the backward."""
     cfg = self.config
 
     def feat_fn(p):
-      screw = None
-      if use_warp and cfg.warp_field_type == 'translation':
+      screw = moving_mask = bone_weights = None
+      if use_warp and cfg.use_bone:
+        bone_out = self.bone_warp_field.warp(p, warp_in_embed)
+        warped_spatial = bone_out['warped_points']
+        moving_mask = bone_out['moving_mask']
+        bone_weights = bone_out['bone_weights']
+      elif use_warp and cfg.warp_field_type == 'translation':
         warped_spatial = self.warp_field.warp(
             p, warp_in_embed, extra_params['warp_alpha'],
             self.cdtype_for('warp'), self.sdtype_for('warp'))
@@ -460,18 +509,29 @@ class NerfDSModel(nn.Module):
             cfg.hyper_point_max_deg, False,
             alpha=extra_params['hyper_alpha']))
       aux = {'screw': screw, 'warped_spatial': warped_spatial,
-             'hyper': hyper, 'warped': warped}
+             'hyper': hyper, 'warped': warped, 'moving_mask': moving_mask,
+             'bone_weights': bone_weights}
       return feat, aux
 
+    if cfg.remat_feat if remat_feat is None else remat_feat:
+      return remat(feat_fn, 'nothing', self)
     return feat_fn
 
   def make_sigma_fn(self, level, warp_in_embed, hyper_in_embed, hyper_embed,
-                    extra_params, *, use_warp=True, hyper_override=None):
+                    extra_params, *, use_warp=True, hyper_override=None,
+                    alpha_condition=None, pointwise_norm=False, remat_fn=True):
     """The pointwise-batched density function of ``[N, 3]`` points:
-    p -> (σ_raw [N], aux with the trunk output, bottleneck and normal)."""
-    feat_fn = self.make_feat_fn(warp_in_embed, hyper_in_embed, hyper_embed,
-                                extra_params, use_warp=use_warp,
-                                hyper_override=hyper_override)
+    p -> (σ_raw [N], aux with the trunk output, bottleneck and normal).
+    ``pointwise_norm``: a 'batch' hidden norm takes each point's own
+    statistics (:func:`mlp.apply_norm`). ``remat_fn=False`` leaves out
+    ``remat_sigma`` and ``remat_feat`` (a caller that recomputes a larger
+    region)."""
+    cfg = self.config
+    remat_sigma = cfg.remat_sigma and remat_fn
+    feat_fn = self.make_feat_fn(
+        warp_in_embed, hyper_in_embed, hyper_embed, extra_params,
+        use_warp=use_warp, hyper_override=hyper_override,
+        remat_feat=cfg.remat_feat and remat_fn and not remat_sigma)
     nerf = self.nerf[level]
 
     cdt = self.cdtype_for('trunk')
@@ -479,11 +539,15 @@ class NerfDSModel(nn.Module):
     def sigma_fn(p):
       feat, aux = feat_fn(p)
       trunk_out, bottleneck = nerf.query_bottleneck(
-          feat, dtype=cdt, storage_dtype=self.sdtype_for('trunk'))
-      sigma_raw, norm = nerf.query_sigma(trunk_out, bottleneck, dtype=cdt)
+          feat, dtype=cdt, storage_dtype=self.sdtype_for('trunk'),
+          pointwise_norm=pointwise_norm)
+      sigma_raw, norm = nerf.query_sigma(trunk_out, bottleneck,
+                                         alpha_condition, dtype=cdt)
       aux.update(trunk_out=trunk_out, bottleneck=bottleneck, norm=norm)
       return sigma_raw[..., 0], aux
 
+    if remat_sigma:
+      return remat(sigma_fn, cfg.remat_policy, self)
     return sigma_fn
 
   def trunk_spec(self, in_dim: int) -> fused_trunk.TrunkSpec:
@@ -496,7 +560,7 @@ class NerfDSModel(nn.Module):
 
   def _sigma_and_grad(self, level, pts, warp_in_embed, hyper_in_embed,
                       hyper_embed, extra_params, use_warp, mode=None,
-                      hyper_override=None):
+                      hyper_override=None, alpha_condition=None):
     """σ_raw, aux and ∂σ/∂p for every point.
 
     In the caller's no-grad mode everything comes back detached. With grad
@@ -508,7 +572,9 @@ class NerfDSModel(nn.Module):
     (forward K1f, backward K1b) on the feature path's output ``feat``
     itself, and pulls g back through the feature path with create_graph, so
     the outer backward reaches Ḡ in K1b and the small MLPs' second-order
-    terms.
+    terms. 'fused' takes 'vmap' where the kernel cannot run the trunk: a
+    non-relu activation or an alpha condition (as in JAX), or a hidden
+    norm.
 
     The gradient is taken with respect to a separate leaf
     ``p = pts.detach()``, so it reaches neither the mask path nor ``pts``.
@@ -517,15 +583,21 @@ class NerfDSModel(nn.Module):
     ``mode`` overrides the config's ``sigma_gradient_mode``.
     """
     outer_grad = torch.is_grad_enabled()
-    mode = mode or self.config.sigma_gradient_mode
-    if mode == 'fused' and self.config.activation != 'relu':
-      mode = 'vmap'  # as the JAX package does: the kernel is relu-only
+    cfg = self.config
+    mode = mode or cfg.sigma_gradient_mode
+    if mode == 'fused' and (cfg.activation != 'relu'
+                            or alpha_condition is not None
+                            or self.has_norm_type):
+      mode = 'vmap'  # K1 runs a relu trunk without a norm or an α condition
     p = pts.detach().requires_grad_(mode != 'jvp')
     nerf = self.nerf[level]
-    fn_kw = dict(use_warp=use_warp, hyper_override=hyper_override)
+    fn_kw = dict(use_warp=use_warp, hyper_override=hyper_override,
+                 alpha_condition=alpha_condition)
     if mode == 'fused':
       feat_fn = self.make_feat_fn(warp_in_embed, hyper_in_embed,
-                                  hyper_embed, extra_params, **fn_kw)
+                                  hyper_embed, extra_params,
+                                  use_warp=use_warp,
+                                  hyper_override=hyper_override)
       with torch.enable_grad():
         parts, aux = feat_fn(p)
         feat = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
@@ -538,29 +610,54 @@ class NerfDSModel(nn.Module):
       sigma_raw = sigma_2d[..., 0]
     elif mode == 'jvp':
       sigma_fn = self.make_sigma_fn(level, warp_in_embed, hyper_in_embed,
-                                    hyper_embed, extra_params, **fn_kw)
+                                    hyper_embed, extra_params,
+                                    remat_fn=False, **fn_kw)
       primal = lambda x: (fwAD.unpack_dual(x).primal
                           if isinstance(x, torch.Tensor) else x)
-      cols = []
-      for j in range(3):
-        tangent = torch.zeros_like(p)
-        tangent[:, j] = 1.0
-        with fwAD.dual_level():
-          sigma_j, aux_j = sigma_fn(fwAD.make_dual(p, tangent))
-          cols.append(fwAD.unpack_dual(sigma_j).tangent)
-          if j == 0:
-            sigma_raw = primal(sigma_j)
-            aux = {k: (type(v)(*map(primal, v))
-                       if isinstance(v, (rigid.Screw, dq_lib.DualQuatMotion))
-                       else primal(v)) for k, v in aux_j.items()}
-      grad_pts = torch.stack(cols, -1)
+
+      def push_tangents(p):
+        cols = []
+        for j in range(3):
+          tangent = torch.zeros_like(p)
+          tangent[:, j] = 1.0
+          with fwAD.dual_level():
+            sigma_j, aux_j = sigma_fn(fwAD.make_dual(p, tangent))
+            cols.append(fwAD.unpack_dual(sigma_j).tangent)
+            if j == 0:
+              sigma_raw = primal(sigma_j)
+              aux = {k: (type(v)(*map(primal, v))
+                         if isinstance(v, (rigid.Screw,
+                                           dq_lib.DualQuatMotion))
+                         else primal(v)) for k, v in aux_j.items()}
+        return sigma_raw, aux, torch.stack(cols, -1)
+
+      if cfg.remat_sigma or cfg.remat_feat:
+        # A region's tangents cannot be recomputed alone: recompute the
+        # whole push.
+        push_tangents = remat(push_tangents, cfg.remat_policy
+                              if cfg.remat_sigma else 'nothing', self)
+      sigma_raw, aux, grad_pts = push_tangents(p)
     elif mode in ('vmap', 'vjp', 'naive'):
+      # JAX's 'vmap' and 'naive' evaluate each point alone: a 'batch' norm
+      # there sees one point.
       sigma_fn = self.make_sigma_fn(level, warp_in_embed, hyper_in_embed,
-                                    hyper_embed, extra_params, **fn_kw)
-      with torch.enable_grad():
-        sigma_raw, aux = sigma_fn(p)
-        (grad_pts,) = torch.autograd.grad(sigma_raw.sum(), p,
-                                          create_graph=outer_grad)
+                                    hyper_embed, extra_params,
+                                    pointwise_norm=mode != 'vjp',
+                                    remat_fn=not cfg.remat_sigma, **fn_kw)
+
+      def sigma_and_grad(p):
+        with torch.enable_grad():
+          sigma_raw, aux = sigma_fn(p)
+          (grad_pts,) = torch.autograd.grad(sigma_raw.sum(), p,
+                                            create_graph=outer_grad)
+        return sigma_raw, aux, grad_pts
+
+      if cfg.remat_sigma:
+        # The region is σ with its ∇σ: recomputing σ alone, the ∇σ graph
+        # would keep one recomputation while the outer backward made
+        # another.
+        sigma_and_grad = remat(sigma_and_grad, cfg.remat_policy, self)
+      sigma_raw, aux, grad_pts = sigma_and_grad(p)
     else:
       raise ValueError(mode)
     if not outer_grad:
@@ -573,7 +670,9 @@ class NerfDSModel(nn.Module):
     hyper parts, the trunk and the σ head) at the canonical points
     ``warped`` [N, 3 (+ hyper)]: the 'canonical' normal target. Plain
     autograd, with create_graph under grad mode, so a loss on it reaches
-    the template's and (through ``warped``) the warp's parameters."""
+    the template's and (through ``warped``) the warp's parameters. Each
+    point is its own batch for a 'batch' norm, as in JAX's per-point
+    gradient."""
     cfg = self.config
     nerf = self.nerf[level]
     outer_grad = torch.is_grad_enabled()
@@ -588,7 +687,8 @@ class NerfDSModel(nn.Module):
             w[..., 3:], cfg.hyper_point_min_deg, cfg.hyper_point_max_deg,
             False, alpha=extra_params['hyper_alpha']))
       trunk_out = nerf.trunk(feat, dtype=self.cdtype_for('trunk'),
-                             storage_dtype=self.sdtype_for('trunk'))
+                             storage_dtype=self.sdtype_for('trunk'),
+                             pointwise_norm=True)
       sigma_raw, _ = nerf.query_sigma(trunk_out, trunk_out,
                                       dtype=self.cdtype_for('trunk'))
       (grad_w,) = torch.autograd.grad(sigma_raw.sum(), w,
@@ -639,11 +739,21 @@ class NerfDSModel(nn.Module):
         hyper_embed = warp_embed
       else:
         hyper_embed = broadcast_ray(self.encode_hyper_embed(metadata))
-    rgb_condition = None
+    alpha_condition = None
+    rgb_condition = []
     if cfg.use_viewdirs and not cfg.use_hyper_c:
-      rgb_condition = [broadcast_ray(math_ops.posenc(
+      rgb_condition.append(broadcast_ray(math_ops.posenc(
           viewdirs, cfg.viewdir_min_deg, cfg.viewdir_max_deg,
-          cfg.use_posenc_identity))]
+          cfg.use_posenc_identity)))
+    if cfg.use_nerf_embed:
+      nerf_embed = broadcast_ray(
+          metadata['encoded_nerf'] if metadata_encoded
+          else self.encode_nerf_embed(metadata))
+      if cfg.use_alpha_condition:
+        alpha_condition = nerf_embed
+      if cfg.use_rgb_condition:
+        rgb_condition.append(nerf_embed)
+    rgb_condition = rgb_condition or None
 
     gt_mask_b = broadcast_ray(gt_mask) if gt_mask is not None else None
 
@@ -699,14 +809,16 @@ class NerfDSModel(nn.Module):
     if compute_sigma_gradient:
       sigma_raw, aux, grad_pts = self._sigma_and_grad(
           level, pts, warp_in_embed, hyper_in_embed, hyper_embed,
-          extra_params, use_warp, hyper_override=hyper_override)
+          extra_params, use_warp, hyper_override=hyper_override,
+          alpha_condition=alpha_condition)
       if cfg.stop_target_norm_gradient:
         grad_pts = grad_pts.detach()
       sigma_gradient = math_ops.normalize(-grad_pts)
     else:
       sigma_raw, aux = self.make_sigma_fn(
           level, warp_in_embed, hyper_in_embed, hyper_embed, extra_params,
-          use_warp=use_warp, hyper_override=hyper_override)(pts)
+          use_warp=use_warp, hyper_override=hyper_override,
+          alpha_condition=alpha_condition)(pts)
       sigma_gradient = None
     screw = aux['screw']
     norm = aux['norm']
@@ -731,6 +843,10 @@ class NerfDSModel(nn.Module):
       return screw
 
     if return_warp_jacobian and use_warp:
+      if cfg.use_bone:
+        raise ValueError('the bone field has no warp Jacobian (nor has it '
+                         'in the JAX package): the elastic loss needs a '
+                         "warp_field_type field, use_bone=False")
       warp_jac = self.warp_field.warp_jacobian(pts, warp_in_embed,
                                                extra_params['warp_alpha'])
       out['warp_jacobian'] = warp_jac.reshape(num_rays, num_samples, 3, 3)
@@ -872,7 +988,8 @@ class NerfDSModel(nn.Module):
           level, gather_samples(pts), gather_samples(warp_in_embed),
           gather_samples(hyper_in_embed), gather_samples(hyper_embed),
           extra_params, use_warp, mode='vmap',
-          hyper_override=gather_samples(hyper_override))
+          hyper_override=gather_samples(hyper_override),
+          alpha_condition=gather_samples(alpha_condition))
       if cfg.stop_target_norm_gradient:
         grad_k = grad_k.detach()
       target_k = math_ops.normalize(-grad_k)
@@ -919,6 +1036,10 @@ class NerfDSModel(nn.Module):
         out['ray_predicted_mask'] = (mask_weights[..., None] * pm).sum(-2)
       else:
         out['ray_predicted_mask'] = (weights[..., None] * pm).sum(-2)
+    if aux['moving_mask'] is not None:
+      mm = aux['moving_mask'].reshape(num_rays, num_samples, 1)
+      out['moving_mask'] = mm
+      out['ray_moving_mask'] = (weights[..., None] * mm).sum(-2)
 
     depth_indices = rendering.compute_depth_index(weights)
     out['med_points'] = torch.gather(
@@ -938,20 +1059,38 @@ class NerfDSModel(nn.Module):
   # -- full forward ---------------------------------------------------------
 
   def forward(self, *args, method: str = 'render', **kwargs):
-    """:meth:`render`, or the method ``method`` names (``'apply_warp'``), so
-    that ``torch.func.functional_call`` can run either on a parameter dict
-    (``training/step.py``)."""
+    """:meth:`render`, or the method ``method`` names (``'apply_warp'``,
+    ``'bone_moving_mask'``), so that ``torch.func.functional_call`` can run
+    any of them on a parameter dict (``training/step.py``)."""
     return getattr(self, method)(*args, **kwargs)
 
-  def apply_warp(self, points: torch.Tensor, warp_metadata: torch.Tensor,
-                 extra_params) -> torch.Tensor:
-    """Warps free-space points (the background loss): ``points`` [P, 3],
-    ``warp_metadata`` [P, 1] integer ids. The mask channel of the warp's
-    metadata is 0 there, as background."""
+  def _run(self, fn, *args):
+    """``fn(*args)``: the recomputation of a remat region runs through
+    ``forward(method='_run')`` under the parameters of its forward
+    (``models/remat.py``)."""
+    return fn(*args)
+
+  def _background_embed(self, warp_metadata: torch.Tensor) -> torch.Tensor:
+    """The warp embedding of background points: the mask channel of the
+    warp's metadata is 0 there."""
     warp_embed = self.warp_embed.encode(warp_metadata)
     if self.config.use_mask_in_warp:
       warp_embed = torch.cat([warp_embed, torch.zeros_like(
           warp_embed[..., :1])], -1)
+    return warp_embed
+
+  def bone_moving_mask(self, points: torch.Tensor,
+                       warp_metadata: torch.Tensor) -> torch.Tensor:
+    """The bone field's moving mask ``[P, 1]`` at free-space points
+    ``[P, 3]`` (the background loss under ``use_bone``)."""
+    return self.bone_warp_field.moving_mask(
+        points, self._background_embed(warp_metadata))
+
+  def apply_warp(self, points: torch.Tensor, warp_metadata: torch.Tensor,
+                 extra_params) -> torch.Tensor:
+    """Warps free-space points (the background loss): ``points`` [P, 3],
+    ``warp_metadata`` [P, 1] integer ids."""
+    warp_embed = self._background_embed(warp_metadata)
     return self.warp_field.warp(points, warp_embed,
                                 extra_params['warp_alpha'],
                                 self.cdtype_for('warp'),

@@ -28,14 +28,16 @@ class SE3Field(nn.Module):
   def __init__(self, metadata_dim: int, min_deg: int = 0, max_deg: int = 8,
                use_posenc_identity: bool = False, trunk_depth: int = 6,
                trunk_width: int = 128, skips: Tuple[int, ...] = (4,),
-               activation: str = 'relu', generator=None):
+               activation: str = 'relu', generator=None,
+               concat_input: bool = False):
     super().__init__()
     self.min_deg, self.max_deg = min_deg, max_deg
     self.use_posenc_identity = use_posenc_identity
     in_dim = math_ops.posenc_dim(3, min_deg, max_deg,
                                  use_posenc_identity) + metadata_dim
     self.trunk = mlp_lib.MLP(in_dim, trunk_depth, trunk_width, skips,
-                             activation, generator=generator)
+                             activation, generator=generator,
+                             concat_input=concat_input)
     # Tiny uniform head init: the field starts near the identity.
     head_init = mlp_lib.uniform_init(1e-4)
     self.w = mlp_lib.Dense(trunk_width, 3, head_init, generator=generator)
@@ -78,14 +80,16 @@ class DualQuaternionField(nn.Module):
   def __init__(self, metadata_dim: int, min_deg: int = 0, max_deg: int = 8,
                use_posenc_identity: bool = False, trunk_depth: int = 6,
                trunk_width: int = 128, skips: Tuple[int, ...] = (4,),
-               activation: str = 'relu', generator=None):
+               activation: str = 'relu', generator=None,
+               concat_input: bool = False):
     super().__init__()
     self.min_deg, self.max_deg = min_deg, max_deg
     self.use_posenc_identity = use_posenc_identity
     in_dim = math_ops.posenc_dim(3, min_deg, max_deg,
                                  use_posenc_identity) + metadata_dim
     self.trunk = mlp_lib.MLP(in_dim, trunk_depth, trunk_width, skips,
-                             activation, generator=generator)
+                             activation, generator=generator,
+                             concat_input=concat_input)
     head_init = mlp_lib.uniform_init(1e-4)
     self.q = mlp_lib.Dense(trunk_width, 4, head_init, generator=generator)
     self.t = mlp_lib.Dense(trunk_width, 3, head_init, generator=generator)
@@ -125,7 +129,8 @@ class TranslationField(nn.Module):
   def __init__(self, metadata_dim: int, min_deg: int = 0, max_deg: int = 8,
                use_posenc_identity: bool = True, depth: int = 6,
                width: int = 128, skips: Tuple[int, ...] = (4,),
-               activation: str = 'relu', generator=None):
+               activation: str = 'relu', generator=None,
+               concat_input: bool = False):
     super().__init__()
     self.min_deg, self.max_deg = min_deg, max_deg
     self.use_posenc_identity = use_posenc_identity
@@ -134,7 +139,8 @@ class TranslationField(nn.Module):
     self.mlp = mlp_lib.MLP(in_dim, depth, width, skips, activation,
                            output_channels=3,
                            output_init=mlp_lib.uniform_init(1e-4),
-                           generator=generator)
+                           generator=generator,
+                           concat_input=concat_input)
 
   def warp(self, points: torch.Tensor, metadata_embed: torch.Tensor,
            warp_alpha=None, dtype=None, storage_dtype=None) -> torch.Tensor:

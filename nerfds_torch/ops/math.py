@@ -1,9 +1,10 @@
 """Core math primitives (L0), counterpart of ``nerfds_tpu/ops/math.py``.
 
 Positional encoding with windowed annealing, safe normalisation, the safe
-norm with its zeroed derivative near 0, the reflected direction, the robust
-and shrinkage losses, PSNR, the divergence and curl of a warp Jacobian, and
-gradient clipping. Shape-polymorphic over leading batch dims.
+norm with its zeroed derivative near 0, the reflected direction, the robust,
+Geman-McClure and shrinkage losses, PSNR, the divergence and curl of a warp
+Jacobian, gradient clipping, bilinear image sampling and trilinear
+coefficients. Shape-polymorphic over leading batch dims.
 """
 from __future__ import annotations
 
@@ -195,3 +196,58 @@ def clip_gradients(grads: Dict[str, torch.Tensor], grad_max_val: float = 0.0,
     mult = torch.clamp(grad_max_norm / (eps + grad_norm), max=1.0)
     grads = {k: mult * g for k, g in grads.items()}
   return grads
+
+
+def matmul_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """A float32 product at full precision: ``torch.matmul``, since the port
+  never lowers float32 products to TF32 unless the caller switches that on
+  (``torch.backends.cuda.matmul.allow_tf32``)."""
+  return torch.matmul(a, b)
+
+
+def gm_loss(x: torch.Tensor, scale) -> torch.Tensor:
+  """Geman-McClure loss."""
+  square = (x / scale) ** 2
+  return 2 * square / torch.clamp(square + 4, min=F32_EPS)
+
+
+def grid_sample(image: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
+  """Bilinear sample of an ``[H, W]`` image at float (x, y) coordinates
+  ``coord [..., 2]``, edge-padded and clamped to the bounds. As in the JAX
+  package, a coordinate clamps to [0, H] and [0, W], so it may land on the
+  padded edge; a corner index past the padded image clamps too (JAX's
+  gather clamps), where its bilinear weight is 0."""
+  batch_shape = coord.shape[:-1]
+  coord = coord.reshape(-1, 2)
+  coord = torch.stack([coord[:, 1], coord[:, 0]], dim=-1)  # (y, x)
+  height, width = image.shape
+  max_bounds = torch.tensor([height, width], dtype=coord.dtype,
+                            device=coord.device)
+  coord = torch.minimum(torch.clamp(coord, min=0), max_bounds)
+  image = torch.nn.functional.pad(image[None, None], (1, 1, 1, 1),
+                                  mode='replicate')[0, 0]
+  coord = coord + 1
+  floor_coord = torch.floor(coord).long()
+  offsets = torch.tensor([[0, 0], [0, 1], [1, 0], [1, 1]],
+                         device=coord.device)
+  corner = floor_coord[:, None, :] + offsets                    # N x 4 x 2
+  cy = corner[..., 0].clamp(0, height + 1)
+  cx = corner[..., 1].clamp(0, width + 1)
+  corner_values = image[cy, cx]                                 # N x 4
+  local = coord - floor_coord
+  ly, lx = local[..., 0], local[..., 1]
+  weights = torch.stack([(1 - lx) * (1 - ly), lx * (1 - ly), (1 - lx) * ly,
+                         lx * ly], dim=-1)
+  return (corner_values * weights).sum(-1).reshape(batch_shape)
+
+
+def get_trilinear_coefficient(pos: torch.Tensor) -> torch.Tensor:
+  """Trilinear weights of unit-cube positions ``pos [N, 3]``, ``[N, 8]`` in
+  the vertex order [C000, C100, C010, C110, C001, C101, C011, C111]."""
+  neg = 1.0 - pos
+  x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
+  nx, ny, nz = neg[:, 0], neg[:, 1], neg[:, 2]
+  cx = torch.stack([nx, x, nx, x, nx, x, nx, x], dim=-1)
+  cy = torch.stack([ny, ny, y, y, ny, ny, y, y], dim=-1)
+  cz = torch.stack([nz, nz, nz, nz, z, z, z, z], dim=-1)
+  return cx * cy * cz

@@ -6,7 +6,9 @@ and 3.88):
   p   = θ v + (1 − cosθ)(w × v) + (θ − sinθ)(w (w·v) − v)
 
 The appliers take a :class:`Screw`, or any motion object with the same
-methods (``ops.dual_quaternion.DualQuatMotion``).
+methods (``ops.dual_quaternion.DualQuatMotion``). The matrix forms
+(``skew``, ``exp_so3``, ``exp_se3_matrix``) are the golden versions that
+tests hold the closed forms against.
 """
 from __future__ import annotations
 
@@ -83,6 +85,74 @@ def transform_point(screw, x: torch.Tensor) -> torch.Tensor:
   if not isinstance(screw, Screw):
     return screw.transform_point(x)
   return rotate(screw, x) + translation(screw)
+
+
+def transform_point_inverse(screw: Screw, x: torch.Tensor) -> torch.Tensor:
+  """Inverse SE(3) action Rᵀ(x − p)."""
+  return rotate_inverse(screw, x - translation(screw))
+
+
+def rotation_matrix(screw: Screw) -> torch.Tensor:
+  """R as ``[..., 3, 3]``: its columns are the basis vectors rotated."""
+  eye = torch.eye(3, dtype=screw.theta.dtype, device=screw.theta.device)
+  eye = eye.expand(*screw.theta.shape, 3, 3)
+  return torch.stack([rotate(screw, eye[..., i, :]) for i in range(3)],
+                     dim=-1)
+
+
+# -- The matrix forms: the golden exp maps, for tests and diagnostics. -------
+
+
+def skew(w: torch.Tensor) -> torch.Tensor:
+  """The cross-product matrix of ``w [..., 3]``, ``[..., 3, 3]``."""
+  zeros = torch.zeros_like(w[..., 0])
+  wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+  return torch.stack([
+      torch.stack([zeros, -wz, wy], dim=-1),
+      torch.stack([wz, zeros, -wx], dim=-1),
+      torch.stack([-wy, wx, zeros], dim=-1),
+  ], dim=-2)
+
+
+def exp_so3(w: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+  """Rodrigues' formula I + sinθ W + (1 − cosθ) W², ``[..., 3, 3]``."""
+  big_w = skew(w)
+  theta = theta[..., None, None]
+  eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(big_w.shape)
+  return (eye + torch.sin(theta) * big_w
+          + (1.0 - torch.cos(theta)) * torch.matmul(big_w, big_w))
+
+
+def exp_se3_matrix(screw_axis: torch.Tensor, theta: torch.Tensor,
+                   rotation_only: bool = False,
+                   inverse: bool = False) -> torch.Tensor:
+  """The 4x4 homogeneous exp map of the screw axis ``[w, v] [..., 6]``
+  and angle ``theta [...]``; ``inverse`` gives [Rᵀ, −Rᵀp]."""
+  w, v = screw_axis[..., :3], screw_axis[..., 3:]
+  big_w = skew(w)
+  rot = exp_so3(w, theta)
+  th = theta[..., None, None]
+  eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(big_w.shape)
+  p_mat = (th * eye + (1.0 - torch.cos(th)) * big_w
+           + (th - torch.sin(th)) * torch.matmul(big_w, big_w))
+  p = torch.matmul(p_mat, v[..., None])[..., 0]
+  if rotation_only:
+    p = p * 0
+  if inverse:
+    rot = rot.transpose(-1, -2)
+    p = -torch.matmul(rot, p[..., None])[..., 0]
+  top = torch.cat([rot, p[..., None]], dim=-1)
+  bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                        device=top.device).expand(*top.shape[:-2], 1, 4)
+  return torch.cat([top, bottom], dim=-2)
+
+
+def to_homogenous(v: torch.Tensor) -> torch.Tensor:
+  return torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
+
+
+def from_homogenous(v: torch.Tensor) -> torch.Tensor:
+  return v[..., :3] / v[..., -1:]
 
 
 def batched_jacobian(fn: Callable[..., torch.Tensor], points: torch.Tensor,

@@ -101,19 +101,21 @@ def compute_background_loss(model, params: Tensors,
                             scale: float = 0.001) -> torch.Tensor:
   """Penalises motion of known-static points, ``[P]``: the robust loss of
   ‖warp(x) − x‖² at the jittered points, one warp evaluation
-  (``model.apply_warp`` on ``params``) over all of them. ``draws`` = (warp
-  ids, jitter)
-  as :func:`draw_background` gives them; without them they are drawn from
-  ``generator``."""
-  if model.config.use_bone:
-    raise NotImplementedError(
-        "the bone field's background term (its moving mask) waits for "
-        'BoneSE3Field; see ROADMAP.md, queue 1')
+  (``model.apply_warp`` on ``params``) over all of them; under
+  ``use_bone``, |moving mask| at those points, ``[P, 1]``. ``draws`` =
+  (warp ids, jitter) as :func:`draw_background` gives them; without them
+  they are drawn from ``generator``."""
   if draws is None:
     draws = draw_background(points.shape[0], model.num_warp_embeds,
                             noise_std, generator, points.device)
   metadata, point_noise = draws
   points = points + point_noise
+  if model.config.use_bone:
+    # Under the bone field, free space should not move: |moving mask|,
+    # [P, 1].
+    return torch.func.functional_call(
+        model, params, (points, metadata),
+        {'method': 'bone_moving_mask'}).abs()
   warped = torch.func.functional_call(
       model, params, (points, metadata, extra_params),
       {'method': 'apply_warp'})

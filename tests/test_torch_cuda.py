@@ -512,3 +512,79 @@ def test_sigma_normals_step_on_card_matches_cpu(cuda):
   assert all(kernels.launch_counts[k] == before[k] + 2 for k in names)
   floor = sigma_normals_floor(grads, batch)
   assert worst_rel(on_card, grads('cpu', batch)) < max(1e-3, 2 * floor)
+
+
+def variant_step(name: str):
+  """nerf_ds() at 32 + 32 samples with (b) ``concat_dense_inputs`` or (c)
+  the bone warp field and its background loss, on 512 rays of the
+  synthetic scene (and, for (c), 256 of its static points with fixed
+  draws). Returns grads(device, batch, kernels) and the batch: the kernel
+  path is 'fused' ∇σ (K1f, K1b) with K2, the plain path 'vmap' with plain
+  compositing."""
+  import dataclasses
+  from nerfds_torch import config as config_lib
+  from nerfds_torch.datasets import SyntheticDataSource
+  from nerfds_torch.models import NerfDSModel
+  from nerfds_torch.training import step as step_lib
+  source = SyntheticDataSource(num_frames=4, image_size=32, gt_samples=32)
+  store = source.build_ray_store(source.train_ids)
+  idx = np.random.RandomState(0).choice(store.num_rays, 512, replace=False)
+  batch = {'origins': store.origins[idx], 'directions': store.directions[idx],
+           'rgb': store.rgb[idx], 'mask': store.mask[idx],
+           'metadata': {'warp': store.metadata['warp'][idx]}}
+  flags = {'concat_dense_inputs': dict(concat_dense_inputs=True),
+           'bone': dict(use_bone=True)}[name]
+  train_cfg = dataclasses.replace(
+      config_lib.nerf_ds_train_config(batch_size=512),
+      warp_alpha_schedule=('constant', 4.0),
+      norm_input_alpha_schedule=('constant', 4.0))
+  if name == 'bone':
+    rng = np.random.RandomState(1)
+    batch.update(background_points=source.load_points()[:256],
+                 background_metadata=rng.randint(0, 4, (256, 1)),
+                 background_noise=rng.randn(256, 3).astype(np.float32) * 1e-3)
+    train_cfg = dataclasses.replace(train_cfg, use_background_loss=True,
+                                    background_loss_weight=1.0)
+  scalars = step_lib.eval_schedules(step_lib.build_schedules(train_cfg), 0)
+
+  def grads(device, batch, kernel_path):
+    model_cfg = dataclasses.replace(
+        config_lib.nerf_ds(), num_coarse_samples=32, num_fine_samples=32,
+        use_stratified_sampling=False, use_pallas_compositing=kernel_path,
+        sigma_gradient_mode='fused' if kernel_path else 'vmap', **flags)
+    model = NerfDSModel(model_cfg, num_warp_embeds=4, num_hyper_embeds=4,
+                        near=source.near, far=source.far, device=device)
+    to = lambda x: ({k: to(v) for k, v in x.items()} if isinstance(x, dict)
+                    else t(x).to(device))
+    g, stats = step_lib._grads(step_lib.make_loss_fn(model, train_cfg),
+                               dict(model.named_parameters()), to(batch),
+                               None, scalars)
+    assert np.isfinite(float(stats['fine']['loss/rgb']))
+    if name == 'bone':
+      assert np.isfinite(float(stats['loss/background']))
+    return {k: v.cpu() for k, v in g.items()}
+
+  return grads, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['concat_dense_inputs', 'bone'])
+def test_variant_step_kernel_path_matches_plain_on_card(cuda, name):
+  """One step of (b) or (c) on the card through K1f, K1b and K2 (each
+  launched twice: the coarse and fine levels) against the plain path on
+  the card, from the same params and batch: within max(1e-3, twice the
+  plain step's float32 floor, its gradients' move when the origins move
+  one ulp)."""
+  grads, batch = variant_step(name)
+  names = ('fused_trunk_fwd', 'fused_trunk_bwd', 'composite_fwd')
+  before = {k: kernels.launch_counts[k] for k in names}
+  got = grads(cuda, batch, True)
+  assert all(kernels.launch_counts[k] == before[k] + 2 for k in names)
+  want = grads(cuda, batch, False)
+  nudged = dict(batch, origins=np.nextafter(batch['origins'],
+                                            np.float32(np.inf)))
+  floor = worst_rel(grads(cuda, nudged, False), want)
+  assert worst_rel(got, want) < max(1e-3, 2 * floor)
+  if name == 'bone':
+    assert float(got['bone_warp_field.moving_mlp.hidden_0.kernel'].abs()
+                 .max()) > 0

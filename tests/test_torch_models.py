@@ -182,12 +182,65 @@ def test_convert_round_trip():
   jax.tree_util.tree_map(np.testing.assert_array_equal, tree, back)
 
 
-def test_unsupported_features_raise():
-  for flag in (dict(use_bone=True), dict(use_nerf_embed=True),
-               dict(remat_feat=True), dict(concat_dense_inputs=True),
-               dict(remat_sigma=True), dict(norm_type='layer')):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-      TorchModel(small(tconfig.nerf_ds(), **flag), device='cpu')
+# Every flag that the port once refused, each on nerf_ds() ('fused' ∇σ and
+# K2 on their plain versions), and BASELINE config[0].
+EVERY_FLAG = {
+    'use_bone': dict(use_bone=True, bone_trunk_width=16,
+                     bone_moving_mlp_width=16),
+    'use_nerf_embed_rgb': dict(use_nerf_embed=True, use_rgb_condition=True),
+    'use_nerf_embed_alpha': dict(use_nerf_embed=True, use_rgb_condition=True,
+                                 use_alpha_condition=True),
+    'norm_type_layer': dict(norm_type='layer'),
+    'norm_type_group': dict(norm_type='group', nerf_trunk_width=64),
+    'norm_type_batch': dict(norm_type='batch'),
+    'remat_sigma_nothing': dict(remat_sigma=True),
+    'remat_sigma_dots': dict(remat_sigma=True, remat_policy='dots'),
+    'remat_feat': dict(remat_feat=True),
+    'concat_dense_inputs': dict(concat_dense_inputs=True),
+    'vanilla_nerf': None,
+}
+
+
+@pytest.mark.parametrize('flag', sorted(EVERY_FLAG))
+def test_every_flag_builds_renders_and_steps(flag):
+  """The model builds on the CPU, renders both levels and takes one training
+  step with finite losses that moves the NeRF MLP, and the bone field or
+  the appearance table where the flag adds one."""
+  from nerfds_torch.models import default_extra_params
+  from nerfds_torch.training import step as tstep
+  if EVERY_FLAG[flag] is None:
+    cfg = small(tconfig.vanilla_nerf(), use_pallas_compositing=True)
+  else:
+    cfg = small(tconfig.nerf_ds(), sigma_gradient_mode='fused',
+                use_pallas_compositing=True, **EVERY_FLAG[flag])
+  model = TorchModel(cfg, num_warp_embeds=3, num_hyper_embeds=3,
+                     num_nerf_embeds=3, device='cpu')
+  rng = np.random.RandomState(0)
+  directions = rng.randn(6, 3).astype(np.float32)
+  batch = {'origins': t(rng.randn(6, 3).astype(np.float32) * 0.1),
+           'directions': t(directions / np.linalg.norm(
+               directions, axis=-1, keepdims=True)),
+           'metadata': {'warp': t(rng.randint(0, 3, (6, 1))),
+                        'appearance': t(rng.randint(0, 3, (6, 1)))},
+           'mask': t(rng.rand(6, 1).astype(np.float32)),
+           'rgb': t(rng.rand(6, 3).astype(np.float32))}
+  with torch.no_grad():
+    out = model.render(batch, default_extra_params(cfg))
+  assert set(out) == set(model.levels)
+  for level in out.values():
+    assert level['rgb'].shape == (6, 3)
+    assert torch.isfinite(level['rgb']).all()
+  train_cfg = tconfig.nerf_ds_train_config(max_steps=10, batch_size=6)
+  state0 = tstep.TrainState.create(dict(model.named_parameters()))
+  state1, stats = tstep.make_train_step(model, train_cfg)(state0, batch)
+  assert np.isfinite(float(stats[model.levels[-1]]['loss/total']))
+  moved = {name.split('.')[0] for name, p in state1.params.items()
+           if float((p - state0.params[name]).abs().max()) > 0}
+  assert 'nerf' in moved
+  if cfg.use_bone:
+    assert 'bone_warp_field' in moved
+  if cfg.use_nerf_embed:
+    assert 'nerf_embed' in moved
 
 
 def test_entry_point_device_default():

@@ -33,7 +33,6 @@ from nerfds_torch.evaluation import render as trender
 from nerfds_torch.models import NerfDSModel as TorchModel
 from nerfds_torch.models import default_extra_params as torch_extra
 from nerfds_torch.models import hyper as thyper
-from nerfds_torch.models.nerfds import unsupported_features
 from nerfds_torch.ops import math as tmath
 from nerfds_torch.training import step as tstep
 
@@ -270,26 +269,27 @@ def test_convert_round_trip_hyper_c_and_screw_branch():
       plain.init(jax.random.PRNGKey(4)))) + 6
 
 
-def test_unsupported_features_admit_the_radiance_branch():
-  base = tconfig.nerf_ds()
-  for flags in (SIGMA_NORMALS, HYPER_C_CANONICAL, DIRECT_CONDITIONS):
-    assert unsupported_features(dataclasses.replace(base, **flags)) == []
-  for kind in ('warped', 'canonical', 'direct', 'canonical_unwarped'):
-    assert unsupported_features(dataclasses.replace(
-        base, norm_supervision_type=kind)) == []
-  for mode in ('vmap', 'fused', 'jvp', 'vjp', 'naive'):
-    assert unsupported_features(dataclasses.replace(
-        base, sigma_gradient_mode=mode)) == []
-  later = dict(use_bone=True, use_nerf_embed=True, remat_sigma=True,
-               remat_feat=True, norm_type='layer', concat_dense_inputs=True)
-  for flag, value in later.items():
-    cfg = dataclasses.replace(base, **{flag: value})
-    assert len(unsupported_features(cfg)) == 1, flag
-    with pytest.raises(NotImplementedError):
-      TorchModel(cfg, device='cpu')
+@pytest.mark.parametrize('flags', [
+    SIGMA_NORMALS, HYPER_C_CANONICAL, DIRECT_CONDITIONS,
+    *(dict(norm_supervision_type=kind) for kind in (
+        'warped', 'canonical', 'direct', 'canonical_unwarped')),
+    *(dict(sigma_gradient_mode=mode) for mode in (
+        'vmap', 'fused', 'jvp', 'vjp', 'naive')),
+    # The flags that came after this slice, on the radiance branch's (a).
+    *(dict(SIGMA_NORMALS, **{flag: value}) for flag, value in dict(
+        use_bone=True, use_nerf_embed=True, remat_sigma=True,
+        remat_feat=True, norm_type='layer',
+        concat_dense_inputs=True).items()),
+], ids=lambda f: '-'.join(f'{k}={v}' for k, v in f.items()))
+def test_the_radiance_branch_builds_with_every_flag(flags):
+  """Each configuration builds at toy widths (the widths of JAX's param
+  tree, held above), and an unknown ∇σ mode raises."""
+  model = TorchModel(dataclasses.replace(tconfig.nerf_ds(), **TOY, **flags),
+                     num_warp_embeds=NUM_EMBEDS, device='cpu')
+  assert model.config.use_bone == flags.get('use_bone', False)
   with pytest.raises(ValueError, match='sigma_gradient_mode'):
-    TorchModel(dataclasses.replace(base, sigma_gradient_mode='other'),
-               device='cpu')
+    TorchModel(dataclasses.replace(tconfig.nerf_ds(), **TOY, **dict(
+        flags, sigma_gradient_mode='other')), device='cpu')
 
 
 # -- both render levels of each flag family -----------------------------------

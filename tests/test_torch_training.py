@@ -13,7 +13,6 @@ the kernels' plain versions. The normal loss weight is run at the preset's
 the tolerance.
 """
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -421,11 +420,11 @@ def test_unported_options_raise():
       Trainer(model=model, train_cfg=train_cfg, datasource=source, **kwargs)
   with pytest.raises(NotImplementedError):
     tsynthetic.SyntheticDataSource(num_frames=4, gt_backend='jax')
-  # Model options still unported, and the bone field's background term.
-  for overrides in ({'use_bone': True}, {'norm_type': 'layer'}):
-    with pytest.raises(NotImplementedError):
-      torch_model(**overrides)
-  bone = types.SimpleNamespace(config=dataclasses.replace(
-      model.config, use_bone=True), num_warp_embeds=NUM_EMBEDS)
-  with pytest.raises(NotImplementedError):
-    tlosses.compute_background_loss(bone, {}, torch.zeros(4, 3), {}, 0.0)
+  # The model options that once raised here build now, and the bone
+  # field's background term is |moving mask| at the points.
+  torch_model(norm_type='layer')
+  bone = torch_model(use_bone=True)
+  loss = tlosses.compute_background_loss(
+      bone, dict(bone.named_parameters()), torch.zeros(4, 3), {}, 0.0,
+      generator=torch.Generator().manual_seed(0))
+  assert loss.shape == (4, 1) and bool((loss >= 0).all())
