@@ -88,16 +88,31 @@
    held against the CPU's step too; (f) ``remat_feat`` and ``remat_sigma``
    'nothing' and 'dots', their gradients within 1e-5 of the run without
    remat, the peak memory of both.
-14. Prints one JSON line describing every kernel, the two bf16 modes of
+14. Data parallelism and the host sampler, on phase 7's scene at full
+   width: (a) ``Trainer(use_mesh=True)`` with no process group, 12 steps,
+   against two runs without a mesh (bit-equal where they are); (b1) one
+   rank on NCCL, (b2) two ranks on the one card over gloo, (b3) two ranks
+   on two cards over NCCL where the machine has them, each a child
+   process of this script running ``nerf_ds_pod`` at 512 rays a rank for
+   24 steps (K1f, K1b, K2 twice a step on every rank, the same parameter
+   bits on every rank; (b1) against runs without a mesh; (b2), (b3) one
+   explicit 2-rank step against one rank within 1e-3 of each gradient's
+   norm, ``eval_psnr`` within 1e-3 dB and ``render_image`` within atol
+   1e-4 + rtol 1e-4 of the rank alone, the all-reduce's time); (c)
+   ``sampling='host'``, 24 steps, its first batches bit-equal to numpy's
+   gather, no sampler thread left, its steady step beside the fused
+   gather's. Every case's steady step and host waits.
+15. Prints one JSON line describing every kernel, the two bf16 modes of
    the trunk kernels included ("launches": the render's count for K1f and
    K2, the training run's for K1b, the eval path's for K3, phase 10(c)'s
    for the bf16 modes; "launches_render", "launches_train",
    "launches_capture", "launches_speed_modes", "launches_deformation",
-   "launches_radiance" and "launches_variants" for all six), a line of the
-   training numbers, a line of the eval numbers, a line of the capture
-   numbers, a line each of the speed modes', the deformation family's, the
-   radiance variants' and the model variants' numbers, the card's line,
-   and as the last line ``{"ok": true, "device": {...}}``. K2's and K3's
+   "launches_radiance", "launches_variants" and "launches_parallel" for
+   all six), a line of the training numbers, a line of the eval numbers,
+   a line of the capture numbers, a line each of the speed modes', the
+   deformation family's, the radiance variants', the model variants' and
+   phase 14's numbers, the card's line, and as the last line
+   ``{"ok": true, "device": {...}}``. K2's and K3's
    entries hold their times at every timed shape under "shapes"; K3's
    σ/normal head there also holds its library call's time
    (``F.linear``).
@@ -2374,6 +2389,470 @@ def phase_variants(torch, device, trainer):
   return launches, out
 
 
+# Phase 14: data parallelism and the host sampler, on phase 7's synthetic
+# scene at full width. Ranks are child processes of this script (a
+# FileStore rendezvous in a temporary directory), started after the kernels
+# are built here, so they load the built library. nerf_ds_pod's schedules
+# are NaN at step 0 of a run shorter than about 20 steps: 24 steps.
+PARALLEL_STEPS = 24
+PARALLEL_WORLD1_STEPS = 12
+PARALLEL_TIMEOUT_S = 600
+ALL_REDUCE_CALLS = 10
+TRUNK_KERNELS = ('fused_trunk_fwd', 'fused_trunk_bwd', 'composite_fwd')
+
+
+def parallel_spec(case: str, world: int, device_type: str = 'cuda',
+                  model_overrides=None, source=None) -> dict:
+  """What a rank of ``case`` runs: ``nerf_ds_pod(num_chips=world,
+  per_chip_batch=TRAIN_BATCH, max_steps=PARALLEL_STEPS)`` with 'fused' ∇σ
+  and K2 compositing, on phase 7's scene."""
+  return dict(case=case, world=world, device_type=device_type,
+              per_rank_batch=TRAIN_BATCH, steps=PARALLEL_STEPS,
+              timed_steps=TRAIN_TIMED_STEPS,
+              model_overrides=model_overrides or {},
+              source=source or dict(num_frames=8, image_size=64))
+
+
+def parallel_configs(spec):
+  import dataclasses
+  from nerfds_torch import config as config_lib
+  model_cfg, train_cfg = config_lib.nerf_ds_pod(
+      num_chips=spec['world'], per_chip_batch=spec['per_rank_batch'],
+      max_steps=spec['steps'])
+  model_cfg = dataclasses.replace(
+      model_cfg, use_pallas_compositing=True, sigma_gradient_mode='fused',
+      **spec['model_overrides'])
+  return model_cfg, dataclasses.replace(train_cfg, print_every=1)
+
+
+def sync(torch, device):
+  if device.type == 'cuda':
+    torch.cuda.synchronize(device)
+
+
+def params_digest(torch, params) -> str:
+  """A SHA-256 of every parameter's bytes, in name order: equal digests
+  are bit-identical parameters."""
+  import hashlib
+  h = hashlib.sha256()
+  for k in sorted(params):
+    h.update(k.encode())
+    h.update(params[k].detach().cpu().contiguous().numpy().tobytes())
+  return h.hexdigest()
+
+
+def max_abs_diff(a, b) -> float:
+  return max((a[k] - b[k]).abs().max().item() for k in a)
+
+
+def steady_ms(torch, device, step_fn, state, n):
+  """ms a step over ``n`` steady steps after two warm-up steps, the device
+  synchronised at both ends (the generator reseeded as phase 11's)."""
+  g = torch.Generator(device=device)
+  for i in range(2):
+    g.manual_seed(40_000 + i)
+    state, _ = step_fn(state, g)
+  sync(torch, device)
+  start = time.perf_counter()
+  for i in range(n):
+    g.manual_seed(50_000 + i)
+    state, _ = step_fn(state, g)
+  sync(torch, device)
+  return 1e3 * (time.perf_counter() - start) / n
+
+
+def image_batch(torch, source, n, device):
+  """The first ``n`` rays of the first train item, as a batch on
+  ``device``: the same global batch on every rank."""
+  item = source.load_item(source.train_ids[0])
+
+  def rows(x):
+    x = torch.as_tensor(x.reshape(-1, x.shape[-1])[:n].copy())
+    return x.to(device)
+
+  return {k: ({m: rows(v) for m, v in item[k].items()} if k == 'metadata'
+              else rows(item[k]))
+          for k in ('origins', 'directions', 'rgb', 'mask', 'metadata')}
+
+
+def parallel_rank(spec_path: str, rank: int) -> int:
+  """One rank of phase 14 (b): run as ``chip_smoke.py --parallel-rank
+  <spec.json> <rank>`` by :func:`run_ranks`; writes ``rank<r>.json``
+  beside the spec."""
+  from pathlib import Path
+  import numpy as np
+  import torch
+  spec_path = Path(spec_path)
+  spec = json.loads(spec_path.read_text())
+  out_dir = spec_path.parent
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  case, world = spec['case'], spec['world']
+  if spec['device_type'] == 'cuda':
+    device = torch.device('cuda', rank if case == 'b3' else 0)
+    torch.cuda.set_device(device)
+  else:
+    device = torch.device('cpu')
+  # NCCL refuses two ranks on one card: (b2) shares it over gloo.
+  backend = ('nccl' if case in ('b1', 'b3') and device.type == 'cuda'
+             else 'gloo')
+  torch.distributed.init_process_group(
+      backend, init_method=f'file://{out_dir / "rendezvous"}',
+      world_size=world, rank=rank)
+  from nerfds_torch import kernels
+  from nerfds_torch.datasets import SyntheticDataSource
+  from nerfds_torch.evaluation.render import render_image
+  from nerfds_torch.ops.sampling import RowShard
+  from nerfds_torch.parallel import mesh as mesh_lib
+  from nerfds_torch.trainer import Trainer, eval_extra_params
+  from nerfds_torch.training import step as step_lib
+  model_cfg, train_cfg = parallel_configs(spec)
+  start = time.perf_counter()
+  source = SyntheticDataSource(**spec['source'])
+  trainer = Trainer.from_experiment(model_cfg, train_cfg, source,
+                                    device=device)
+  store = trainer.build_store()
+  out = dict(rank=rank, backend=backend, device=str(device),
+             world=trainer.mesh.world_size, store_rays=store.num_rays,
+             setup_s=time.perf_counter() - start)
+  losses = []
+  kernels.reset_launch_counts()
+  start = time.perf_counter()
+  state = trainer.train(num_steps=spec['steps'], log_fn=lambda s, d: (
+      losses.append(d['stats']['fine']['loss/total'])))
+  sync(torch, device)
+  out.update(train_s=time.perf_counter() - start,
+             launches=dict(kernels.launch_counts), losses=losses,
+             params_sha256=params_digest(torch, state.params))
+  step_fn = step_lib.make_fused_train_step(trainer.model, train_cfg, store,
+                                           None, trainer.mesh)
+  out['step_ms'] = steady_ms(torch, device, step_fn, state,
+                             spec['timed_steps'])
+  if device.type == 'cuda':
+    g = torch.Generator(device=device).manual_seed(60_000)
+    syncs = host_syncs(torch, lambda: step_fn(state, g))
+    out['host_syncs'] = sum(syncs.values())
+    out['host_sync_sites'] = syncs
+
+  if world == 1:
+    # (b1): against two runs without a mesh.
+    plain = []
+    for _ in range(2):
+      run = Trainer.from_experiment(model_cfg, train_cfg, source,
+                                    use_mesh=False, device=device)
+      plain.append(run.train(num_steps=spec['steps'], store=store).params)
+    out['diff_mesh_plain'] = [max_abs_diff(state.params, p) for p in plain]
+    out['diff_plain_plain'] = max_abs_diff(*plain)
+  else:
+    mesh = trainer.mesh
+    # One explicit step on a global batch split over the ranks against the
+    # whole batch on one rank, each rank drawing its rows' share of the
+    # one-rank draws.
+    n = train_cfg.batch_size
+    batch = image_batch(torch, source, n, device)
+    scalars = step_lib.eval_schedules(step_lib.build_schedules(train_cfg),
+                                      state.step)
+    per = n // world
+    gen = lambda: torch.Generator(device=device).manual_seed(123)
+    grads, stats = step_lib._accum_grads(
+        step_lib.make_loss_fn(trainer.model, train_cfg, mesh),
+        state.params, mesh_lib.shard_batch(batch, mesh),
+        RowShard(gen(), n, rank * per, (rank + 1) * per), scalars, 1)
+    grads, stats = step_lib._mesh_reduce(grads, stats, mesh)
+    # The all-reduce a step (the gradients; the scalar stats add a few
+    # floats), by CUDA events on the card.
+    sync(torch, device)
+    if device.type == 'cuda':
+      begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+      begin.record()
+    start = time.perf_counter()
+    for _ in range(ALL_REDUCE_CALLS):
+      mesh_lib.all_reduce_mean(grads, mesh)
+    if device.type == 'cuda':
+      end.record()
+      end.synchronize()
+      out['all_reduce_ms'] = begin.elapsed_time(end) / ALL_REDUCE_CALLS
+    else:
+      out['all_reduce_ms'] = 1e3 * (time.perf_counter() - start) / (
+          ALL_REDUCE_CALLS)
+    out['all_reduce_bytes'] = sum(4 * g.numel() for g in grads.values())
+    if rank == 0:
+      want, _ = step_lib._grads(step_lib.make_loss_fn(trainer.model,
+                                                      train_cfg),
+                                state.params, batch, gen(), scalars)
+      rels = {k: ((grads[k] - w).norm() / w.norm().clamp_min(1e-30)).item()
+              for k, w in want.items()}
+      worst = max(rels, key=rels.get)
+      out.update(grad_rel_worst=rels[worst], grad_rel_worst_name=worst,
+                 grad_rel_median=float(np.median(list(rels.values()))))
+      del want
+    del grads, stats, batch
+    # eval_psnr and render_image through the mesh against the rank alone.
+    item_ids = source.val_ids[:1]
+    out['eval_mesh'] = trainer.eval_psnr(state, item_ids=item_ids)
+    item = source.load_item(item_ids[0])
+    rays = {k: item[k] for k in ('origins', 'directions', 'mask',
+                                 'metadata')}
+    extra = eval_extra_params(model_cfg, train_cfg, state.step)
+    model = trainer.model_with_params(state.params)
+    rgb = render_image(model, rays, extra, keys=('rgb',), mesh=mesh,
+                       generator=torch.Generator(device=device).manual_seed(0)
+                       )['rgb']
+    if rank == 0:
+      alone = Trainer.from_experiment(model_cfg, train_cfg, source,
+                                      use_mesh=False, device=device)
+      out['eval_alone'] = alone.eval_psnr(state, item_ids=item_ids)
+      want = render_image(
+          model, rays, extra, keys=('rgb',),
+          generator=torch.Generator(device=device).manual_seed(0))['rgb']
+      out['render_max_abs'] = float(np.abs(rgb - want).max())
+      out['render_bad'] = int((np.abs(rgb - want)
+                               > 1e-4 + 1e-4 * np.abs(want)).sum())
+    torch.distributed.barrier()
+  (out_dir / f'rank{rank}.json').write_text(json.dumps(out))
+  torch.distributed.destroy_process_group()
+  return 0
+
+
+def run_ranks(spec: dict, ranks: int, name: str):
+  """Starts ``ranks`` processes of :func:`parallel_rank` on ``spec`` and
+  returns their results; kills them all if one fails or they outlast
+  ``PARALLEL_TIMEOUT_S``."""
+  import os
+  import tempfile
+  from pathlib import Path
+  with tempfile.TemporaryDirectory() as tmp:
+    spec_path = Path(tmp) / 'spec.json'
+    spec_path.write_text(json.dumps(spec))
+    logs = [open(Path(tmp) / f'log{r}.txt', 'w+') for r in range(ranks)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--parallel-rank',
+         str(spec_path), str(r)], stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(ranks)]
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+      while any(p.poll() is None for p in procs):
+        if (time.monotonic() > deadline
+            or any(p.returncode not in (None, 0) for p in procs)):
+          break
+        time.sleep(0.5)
+    finally:
+      for p in procs:
+        if p.poll() is None:
+          p.kill()
+        p.wait()
+      texts = []
+      for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    if any(p.returncode != 0 for p in procs):
+      for r, text in enumerate(texts):
+        print(f'  {name} rank {r} (rc {procs[r].returncode}):\n'
+              + text[-3000:])
+      raise AssertionError(f'{name}: ranks exited with '
+                           f'{[p.returncode for p in procs]}')
+    return [json.loads((Path(tmp) / f'rank{r}.json').read_text())
+            for r in range(ranks)]
+
+
+def check_world_one(name, d_mesh, d_plain):
+  """A mesh of one rank runs the ops of the run without one: bit-equal
+  where two runs without a mesh are bit-equal, otherwise within twice
+  their distance (three runs of one nondeterministic program)."""
+  print(f'  {name}: max |mesh - plain run| {d_mesh[0]:.3e} and '
+        f'{d_mesh[1]:.3e}, max |plain run - plain run| {d_plain:.3e}')
+  ok = (max(d_mesh) == 0) if d_plain == 0 else max(d_mesh) <= 2 * d_plain
+  if not ok:
+    raise AssertionError(f'{name}: mesh differs from the plain runs by '
+                         f'{d_mesh}, they from each other by {d_plain}')
+
+
+def check_ranks(name, results, steps):
+  """Every rank: K1f, K1b, K2 twice a step and nothing else, finite losses,
+  and the same parameter bits."""
+  import math
+  for r in results:
+    check_launches(f'{name} rank {r["rank"]}', r['launches'],
+                   **dict.fromkeys(TRUNK_KERNELS, 2 * steps))
+    if not (len(r['losses']) == steps
+            and all(math.isfinite(x) for x in r['losses'])):
+      raise AssertionError(f'{name} rank {r["rank"]}: losses {r["losses"]}')
+  digests = {r['params_sha256'] for r in results}
+  print(f'  {name}: parameter digests {sorted(digests)}')
+  if len(digests) != 1:
+    raise AssertionError(f'{name}: the ranks hold different parameters')
+
+
+def phase_parallel(torch, device, trainer):
+  """Phase 14: (a) a mesh of one rank in this process against two runs
+  without one; (b1) one rank on NCCL, (b2) two ranks on the one card over
+  gloo, (b3) two ranks on two cards over NCCL where there are two, each
+  ``nerf_ds_pod`` at 512 rays a rank, 24 steps; (c) ``sampling='host'``
+  on phase 7's store held in host memory."""
+  import dataclasses
+  import threading
+  import numpy as np
+  from nerfds_torch import config as config_lib
+  from nerfds_torch import kernels
+  from nerfds_torch.datasets import HostRayIterator
+  from nerfds_torch.trainer import Trainer
+  from nerfds_torch.training import step as step_lib
+  phase_start = time.perf_counter()
+  print('== phase 14: data parallelism and the host sampler')
+  cfg = dataclasses.replace(config_lib.nerf_ds(), use_pallas_compositing=True,
+                            sigma_gradient_mode='fused')
+  train_cfg = dataclasses.replace(
+      config_lib.nerf_ds_train_config(batch_size=TRAIN_BATCH), print_every=1)
+  store = trainer.build_store()
+  out, launches = {}, {}
+
+  # (a) World 1 in this process, no process group.
+  runs = {}
+  for name, use_mesh in (('mesh', True), ('plain_1', False),
+                         ('plain_2', False)):
+    run = Trainer.from_experiment(cfg, train_cfg, trainer.datasource,
+                                  use_mesh=use_mesh, device=device)
+    kernels.reset_launch_counts()
+    runs[name] = run, run.train(num_steps=PARALLEL_WORLD1_STEPS, store=store)
+    sync(torch, device)
+    if name == 'mesh':
+      launches['world1'] = dict(kernels.launch_counts)
+      check_launches('(a) world 1', launches['world1'],
+                     **dict.fromkeys(TRUNK_KERNELS,
+                                     2 * PARALLEL_WORLD1_STEPS))
+  params = {k: s.params for k, (_, s) in runs.items()}
+  d_mesh = [max_abs_diff(params['mesh'], params[p])
+            for p in ('plain_1', 'plain_2')]
+  d_plain = max_abs_diff(params['plain_1'], params['plain_2'])
+  check_world_one('(a) world 1', d_mesh, d_plain)
+  out['world1'] = dict(diff_mesh_plain=d_mesh, diff_plain_plain=d_plain)
+  for name in ('mesh', 'plain_1'):
+    run, state = runs[name]
+    step_fn = step_lib.make_fused_train_step(run.model, train_cfg, store,
+                                             None, run.mesh)
+    out['world1'][f'{name}_step_ms'] = steady_ms(torch, device, step_fn,
+                                                 state, TRAIN_TIMED_STEPS)
+    g = torch.Generator(device=device).manual_seed(60_000)
+    syncs = host_syncs(torch, lambda: step_fn(state, g))
+    out['world1'][f'{name}_host_syncs'] = sum(syncs.values())
+  print(f'  (a) steady step: mesh {out["world1"]["mesh_step_ms"]:.1f} ms, '
+        f'without {out["world1"]["plain_1_step_ms"]:.1f} ms; host waits a '
+        f'step {out["world1"]["mesh_host_syncs"]} and '
+        f'{out["world1"]["plain_1_host_syncs"]}')
+  del runs, params
+
+  # (b1)-(b3): ranks in child processes.
+  cases = [('b1', 1), ('b2', 2)]
+  if torch.cuda.device_count() >= 2:
+    cases.append(('b3', 2))
+  else:
+    print(f'  (b3) two ranks on NCCL: not run, the machine has '
+          f'{torch.cuda.device_count()} card (NCCL refuses two ranks on '
+          'one card)')
+    out['b3'] = 'not run: one card'
+  for case, world in cases:
+    start = time.perf_counter()
+    results = run_ranks(parallel_spec(case, world), world, case)
+    wall = time.perf_counter() - start
+    check_ranks(case, results, PARALLEL_STEPS)
+    for r in results:
+      launches[f'{case}_rank{r["rank"]}'] = r['launches']
+      print(f'  {case} rank {r["rank"]} ({r["backend"]}, {r["device"]}): '
+            f'{r["store_rays"]} rays in its store, set-up '
+            f'{r["setup_s"]:.1f} s, {PARALLEL_STEPS} steps in '
+            f'{r["train_s"]:.2f} s, steady step {r["step_ms"]:.1f} ms, host '
+            f'waits a step {r.get("host_syncs")} at {r.get("host_sync_sites")}'
+            f', loss {r["losses"][0]:.5f} -> {r["losses"][-1]:.5f}')
+    first = results[0]
+    if world == 1:
+      check_world_one(f'({case}) one rank', first['diff_mesh_plain'],
+                      first['diff_plain_plain'])
+    else:
+      print(f'  {case}: one explicit step on {2 * TRAIN_BATCH} rays split '
+            f'over 2 ranks against one rank: gradients worst '
+            f'{first["grad_rel_worst"]:.3e} ({first["grad_rel_worst_name"]}),'
+            f' median {first["grad_rel_median"]:.3e}; all-reduce '
+            f'{first["all_reduce_ms"]:.3f} ms for '
+            f'{first["all_reduce_bytes"]} bytes; eval psnr mesh '
+            f'{first["eval_mesh"]["psnr"]:.5f} dB, alone '
+            f'{first["eval_alone"]["psnr"]:.5f}; render rgb max |mesh - '
+            f'alone| {first["render_max_abs"]:.3e}, '
+            f'{first["render_bad"]} beyond atol 1e-4 + rtol 1e-4')
+      # Phase 7's tolerance: float32 sums in another order, relu kinks.
+      if not first['grad_rel_worst'] <= 1e-3:
+        raise AssertionError(f'{case}: gradients {first["grad_rel_worst"]}')
+      if not abs(first['eval_mesh']['psnr']
+                 - first['eval_alone']['psnr']) <= 1e-3:
+        raise AssertionError(f'{case}: eval_psnr {first["eval_mesh"]} vs '
+                             f'{first["eval_alone"]}')
+      if first['render_bad']:
+        raise AssertionError(f'{case}: render rgb off at '
+                             f'{first["render_bad"]} values')
+      if results[1]['eval_mesh'] != first['eval_mesh']:
+        raise AssertionError(f'{case}: the ranks evaluate differently')
+    out[case] = dict(wall_s=wall, ranks=results)
+
+  # (c) sampling='host' on phase 7's store in host memory.
+  host = Trainer.from_experiment(cfg, train_cfg, trainer.datasource,
+                                 sampling='host', device=device)
+  host_store = host.build_store()
+  it = HostRayIterator(host_store, TRAIN_BATCH, seed=train_cfg.random_seed,
+                       device=device)
+  rng = np.random.RandomState(train_cfg.random_seed)
+  try:
+    for i in range(3):
+      got = next(it)
+      idx = rng.randint(0, host_store.num_rays, TRAIN_BATCH)
+      for k, x in host_store.as_dict().items():
+        pairs = ((x, got[k]),) if k != 'metadata' else tuple(
+            (x[m], got[k][m]) for m in x)
+        for want, have in pairs:
+          if not torch.equal(have.cpu(), torch.from_numpy(
+              np.ascontiguousarray(want[idx]))):
+            raise AssertionError(f'(c) batch {i} {k} differs from numpy')
+  finally:
+    it.close()
+  threads = set(threading.enumerate())
+  kernels.reset_launch_counts()
+  losses = []
+  state = host.train(num_steps=PARALLEL_STEPS, log_fn=lambda s, d: (
+      losses.append(d['stats']['fine']['loss/total'])))
+  sync(torch, device)
+  launches['host'] = dict(kernels.launch_counts)
+  check_launches('(c) host sampling', launches['host'],
+                 **dict.fromkeys(TRUNK_KERNELS, 2 * PARALLEL_STEPS))
+  alive = [t.name for t in set(threading.enumerate()) - threads]
+  if alive or not np.isfinite(losses).all():
+    raise AssertionError(f'(c) threads left {alive}, losses {losses}')
+  # Steady steps through Trainer.train (steps 12 to 24, logging only at the
+  # last), host and fused in turns.
+  quiet = dataclasses.replace(train_cfg, print_every=10**6)
+  timed = {'fused': [], 'host': []}
+  for sampling in ('fused', 'host', 'host', 'fused'):
+    run = Trainer.from_experiment(cfg, quiet, trainer.datasource,
+                                  sampling=sampling, device=device)
+    run_store = host_store if sampling == 'host' else store
+    half = run.train(num_steps=PARALLEL_STEPS // 2, store=run_store)
+    sync(torch, device)
+    start = time.perf_counter()
+    run.train(num_steps=PARALLEL_STEPS, state=half, store=run_store)
+    sync(torch, device)
+    timed[sampling].append(1e3 * (time.perf_counter() - start)
+                           / (PARALLEL_STEPS - PARALLEL_STEPS // 2))
+  out['host'] = dict(step_ms=timed['host'], fused_step_ms=timed['fused'],
+                     loss_first=losses[0], loss_last=losses[-1])
+  print(f'  (c) host sampling: batches 0-2 bit-equal to numpy\'s gather, '
+        f'no sampler thread left, loss {losses[0]:.5f} -> {losses[-1]:.5f};'
+        f' steady step through Trainer.train: host '
+        f'{", ".join(f"{x:.1f}" for x in timed["host"])} ms, fused '
+        f'{", ".join(f"{x:.1f}" for x in timed["fused"])} ms')
+  out['wall_s'] = time.perf_counter() - phase_start
+  print(f'  phase 14 wall time: {out["wall_s"]:.1f} s')
+  return launches, out
+
+
 def check_launches(name, launches, **want):
   """``launches`` must hold the counts in ``want``, and 0 for every other
   kernel."""
@@ -2503,6 +2982,10 @@ def main() -> int:
   for r in results:
     r['launches_variants'] = {mode: counts[r['name']]
                               for mode, counts in variants_launches.items()}
+  parallel_launches, parallel = phase_parallel(torch, device, trainer)
+  for r in results:
+    r['launches_parallel'] = {case: counts[r['name']]
+                              for case, counts in parallel_launches.items()}
   for r in results:
     r['launches_speed_modes'] = {mode: counts[r['name']]
                                  for mode, counts in speed_launches.items()}
@@ -2520,6 +3003,7 @@ def main() -> int:
   print('deformation: ' + json.dumps(deformation))
   print('radiance: ' + json.dumps(radiance))
   print('variants: ' + json.dumps(variants))
+  print('parallel: ' + json.dumps(parallel))
   print(f'card: {card_line()}')
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -2528,4 +3012,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+  if sys.argv[1:2] == ['--parallel-rank']:
+    sys.exit(parallel_rank(sys.argv[2], int(sys.argv[3])))
   sys.exit(main())

@@ -17,6 +17,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from nerfds_torch.gpath import GPath
+
 
 def _compute_residual_and_jacobian(x, y, xd, yd, k1=0.0, k2=0.0, k3=0.0,
                                    p1=0.0, p2=0.0):
@@ -91,7 +93,7 @@ class Camera:
   @classmethod
   def from_json(cls, path) -> "Camera":
     """Loads the Nerfies camera JSON schema."""
-    with open(path, "r") as fp:
+    with GPath(path).open("r") as fp:
       camera_json = json.load(fp)
     if "tangential" in camera_json:
       camera_json["tangential_distortion"] = camera_json["tangential"]

@@ -1,12 +1,13 @@
 """L2 data layer, counterpart of ``nerfds_tpu/datasets``."""
-from nerfds_torch.datasets.core import DataSource, RayStore, sample_batch
+from nerfds_torch.datasets.core import (DataSource, HostRayIterator, RayStore,
+                                        sample_batch)
 from nerfds_torch.datasets.interp import InterpDataSource
 from nerfds_torch.datasets.nerfies import NerfiesDataSource
 from nerfds_torch.datasets.synthetic import (SyntheticDataSource,
                                              VrigSyntheticDataSource,
                                              write_nerfies_dataset)
 
-__all__ = ['DataSource', 'RayStore', 'sample_batch', 'InterpDataSource',
+__all__ = ['DataSource', 'HostRayIterator', 'RayStore', 'sample_batch', 'InterpDataSource',
            'NerfiesDataSource', 'SyntheticDataSource',
            'VrigSyntheticDataSource', 'write_nerfies_dataset', 'from_config']
 

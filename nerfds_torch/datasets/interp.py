@@ -12,7 +12,7 @@ from typing import Dict
 import numpy as np
 
 from nerfds_torch.datasets.nerfies import NerfiesDataSource
-from nerfds_torch.image_utils import local_path
+from nerfds_torch.gpath import GPath
 
 
 class InterpDataSource(NerfiesDataSource):
@@ -21,7 +21,7 @@ class InterpDataSource(NerfiesDataSource):
   def __init__(self, data_dir, interval: int = 4, **kwargs):
     # The split comes from the full sorted id list of the base dataset.
     dataset_json = json.loads(
-        (local_path(data_dir) / 'dataset.json').read_text())
+        (GPath(data_dir) / 'dataset.json').read_text())
     all_ids = sorted(str(i) for i in dataset_json.get(
         'ids', dataset_json['train_ids'] + dataset_json['val_ids']))
     if len(all_ids) <= interval:

@@ -26,7 +26,8 @@ import numpy as np
 
 from nerfds_torch.camera import Camera
 from nerfds_torch.datasets.core import DataSource
-from nerfds_torch.image_utils import load_image, local_path
+from nerfds_torch.gpath import GPath
+from nerfds_torch.image_utils import load_image
 
 # Fixed-point RGB -> gray weights (R, G, B, out of 2^14) of OpenCV's
 # cvtColor, for colour masks. Masks are written gray; for a colour mask
@@ -35,7 +36,7 @@ _GRAY_WEIGHTS = np.array([4899, 9617, 1868], np.int64)
 
 
 def load_scene_info(data_dir) -> Tuple[np.ndarray, float, float, float]:
-  scene_json = json.loads((local_path(data_dir) / 'scene.json').read_text())
+  scene_json = json.loads((GPath(data_dir) / 'scene.json').read_text())
   return (np.array(scene_json['center']), scene_json['scale'],
           scene_json['near'], scene_json['far'])
 
@@ -69,7 +70,7 @@ def load_camera(camera_path, scale_factor: float = 1.0,
                 scene_center=None, scene_scale=None) -> Camera:
   """Loads a camera, scales it, recentres it on ``scene_center`` and then
   rescales its position by ``scene_scale``."""
-  camera = Camera.from_json(local_path(camera_path))
+  camera = Camera.from_json(GPath(camera_path))
   if scale_factor != 1.0:
     camera = camera.scale(scale_factor)
   if scene_center is not None:
@@ -84,7 +85,7 @@ class NerfiesDataSource(DataSource):
 
   def __init__(self, data_dir, image_scale: int = 1,
                test_camera_trajectory: str = 'orbit-mild', **kwargs):
-    self.data_dir = local_path(data_dir)
+    self.data_dir = GPath(data_dir)
     dataset_json = json.loads((self.data_dir / 'dataset.json').read_text())
     train_ids = [str(i) for i in dataset_json['train_ids']]
     val_ids = [str(i) for i in dataset_json['val_ids']]

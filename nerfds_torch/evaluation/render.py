@@ -4,7 +4,9 @@
 Every chunk has the same fixed size (the tail chunk is padded by repeating
 its last ray) and the metadata embeddings are encoded once per image.
 Rendering runs under ``torch.no_grad()``; only the per-point ∇σ pullback
-inside the model turns autograd on.
+inside the model turns autograd on. Under a data mesh each rank renders
+its rows of every chunk and the rows are gathered, so every rank returns
+the whole image.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from nerfds_torch.models.nerfds import NerfDSModel
+from nerfds_torch.ops.sampling import RowShard
+from nerfds_torch.parallel import mesh as mesh_lib
 
 
 def make_render_fn(model: NerfDSModel, use_sample_at_infinity=None,
@@ -55,11 +59,24 @@ def _tensor(x, device) -> torch.Tensor:
   return t.to(device)
 
 
+def _gather_rows(out: Dict[str, torch.Tensor], mesh: mesh_lib.DataMesh
+                 ) -> Dict[str, torch.Tensor]:
+  """Every rank's rows of each output, in one collective."""
+  rows = next(iter(out.values())).shape[0]
+  flat = {k: v.reshape(rows, -1) for k, v in out.items()}
+  whole = mesh_lib.all_gather_rows(
+      torch.cat([v.float() for v in flat.values()], -1), mesh)
+  parts = torch.split(whole, [v.shape[1] for v in flat.values()], -1)
+  return {k: p.to(out[k].dtype).reshape(-1, *out[k].shape[1:])
+          for (k, p) in zip(out, parts)}
+
+
 def render_image(model: NerfDSModel, rays_dict: Dict[str, Any], extra_params,
                  *, generator: Optional[torch.Generator] = None,
                  chunk: int = 8192, render_fn=None,
-                 level: Optional[str] = None,
-                 keys=None) -> Dict[str, np.ndarray]:
+                 level: Optional[str] = None, keys=None,
+                 mesh: Optional[mesh_lib.DataMesh] = None
+                 ) -> Dict[str, np.ndarray]:
   """Renders every pixel of an image in fixed-size chunks, on the model's
   device.
 
@@ -70,6 +87,12 @@ def render_image(model: NerfDSModel, rays_dict: Dict[str, Any], extra_params,
   Matmuls and convolutions run in full float32:
   this sets ``torch.backends.cuda.matmul.allow_tf32`` and
   ``torch.backends.cudnn.allow_tf32`` to False.
+
+  ``mesh``: every rank of it calls this with the same rays and a
+  generator in the same state. The chunk is padded to a multiple of the
+  world size; each rank renders its rows of a chunk, drawing what one
+  process rendering the whole chunk draws for those rows
+  (``sampling.RowShard``), and the rows are gathered.
   """
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -90,6 +113,13 @@ def render_image(model: NerfDSModel, rays_dict: Dict[str, Any], extra_params,
         k: _tensor(v, device).reshape(-1, v.shape[-1])[:1]
         for k, v in metadata.items()})
   level = level or ('fine' if model.config.num_fine_samples > 0 else 'coarse')
+  sharded = mesh is not None and mesh.world_size > 1
+  if sharded:
+    mesh_lib.check_batch_norm(model.config.norm_type, mesh)
+    chunk = mesh_lib.pad_to_multiple(chunk, mesh.world_size)
+    per = chunk // mesh.world_size
+    generator = RowShard(generator, chunk, mesh.rank * per,
+                         (mesh.rank + 1) * per)
 
   outs = []
   for start in range(0, num_rays, chunk):
@@ -106,8 +136,13 @@ def render_image(model: NerfDSModel, rays_dict: Dict[str, Any], extra_params,
         'mask': sl['mask'] if 'mask' in sl else torch.zeros(
             chunk, 1, device=device),
     }
+    if sharded:
+      chunk_rays = mesh_lib.shard_batch(chunk_rays, mesh)
     out = render_fn(chunk_rays, extra_params, generator)[level]
-    outs.append({k: v[:n].cpu().numpy() for k, v in out.items() if k in keys})
+    out = {k: v for k, v in out.items() if k in keys}
+    if sharded:
+      out = _gather_rows(out, mesh)
+    outs.append({k: v[:n].cpu().numpy() for k, v in out.items()})
 
   result = {}
   for k in outs[0]:

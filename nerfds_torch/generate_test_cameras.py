@@ -26,7 +26,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from nerfds_torch.datasets.nerfies import NerfiesDataSource
-from nerfds_torch.image_utils import local_path
+from nerfds_torch.gpath import GPath
 
 
 def load_ids(data_dir: Path):
@@ -123,7 +123,7 @@ def main(argv: Optional[Sequence[str]] = None):
   p.add_argument('--sweep_deg', type=float, default=60.0,
                  help='orbit mode: total angular sweep')
   args = p.parse_args(argv)
-  data_dir = local_path(args.data_dir)
+  data_dir = GPath(args.data_dir)
   if args.mode == 'split':
     mode_split(data_dir)
   elif args.mode == 'orbit':

@@ -8,7 +8,7 @@ only writer. The reader takes 8-bit gray, gray + alpha, RGB and RGBA, and
 16-bit samples of the same kinds (depth maps are 16-bit gray), with every
 row filter (None, Sub, Up, Average, Paeth). Palette, interlaced and
 sub-byte files raise ``ValueError``. Paths are local: a ``gs://`` path
-raises ``ValueError``.
+raises ``ValueError`` (``gpath.GPath``).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from typing import Union
 import numpy as np
 
 from nerfds_torch import viz
+from nerfds_torch.gpath import GPath
 
 UINT8_MAX = 255
 UINT16_MAX = 65535
@@ -30,14 +31,6 @@ PathLike = Union[str, Path]
 _PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
 # Channels of each PNG colour type the reader takes (3, palette, is not).
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-
-
-def local_path(path: PathLike) -> Path:
-  """``path`` as a ``Path``; a URL such as ``gs://...`` raises: the port
-  reads and writes local files only."""
-  if '://' in str(path):
-    raise ValueError(f'{str(path)!r}: only local paths are supported')
-  return Path(path)
 
 
 def image_to_uint8(image: np.ndarray) -> np.ndarray:
@@ -183,18 +176,18 @@ def decode_png(data: bytes) -> np.ndarray:
 def load_image(path: PathLike) -> np.ndarray:
   """A PNG file as uint8 or uint16: [H, W] gray, else [H, W, C] in the
   file's order (RGB, RGBA)."""
-  return decode_png(local_path(path).read_bytes())
+  return decode_png(GPath(path).read_bytes())
 
 
 def save_image(path: PathLike, image: np.ndarray) -> None:
-  viz.save_png(local_path(path), image_to_uint8(image))
+  viz.save_png(GPath(path), image_to_uint8(image))
 
 
 def save_depth(path: PathLike, depth: np.ndarray,
                scale: float = 1000.0) -> None:
   """Depth (meters) -> uint16 millimeter PNG."""
   mm = np.clip(depth * scale, 0, UINT16_MAX).astype(np.uint16)
-  viz.save_png(local_path(path), mm)
+  viz.save_png(GPath(path), mm)
 
 
 def load_depth(path: PathLike, scale: float = 1000.0) -> np.ndarray:

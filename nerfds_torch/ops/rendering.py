@@ -13,6 +13,7 @@ from typing import Dict, Optional
 import torch
 
 from nerfds_torch.kernels import composite as composite_lib
+from nerfds_torch.ops import sampling
 
 
 def compute_alpha_and_weights(sigma, z_vals, dirs, sample_at_infinity=True,
@@ -124,7 +125,7 @@ def noise_regularize_sigma(sigma, noise_std: Optional[float],
                            generator: Optional[torch.Generator] = None):
   """Gaussian noise on raw σ."""
   if noise_std is not None and noise_std > 0.0 and use_stratified_sampling:
-    noise = torch.randn(sigma.shape, generator=generator,
-                        device=sigma.device, dtype=sigma.dtype)
+    noise = sampling.draw(torch.randn, sigma.shape, generator,
+                          device=sigma.device, dtype=sigma.dtype)
     sigma = sigma + noise * noise_std
   return sigma

@@ -1,15 +1,43 @@
 """Ray sampling (L0), counterpart of ``nerfds_tpu/ops/sampling.py``:
 stratified coarse samples and inverse-CDF importance samples.
 
-Random draws come from an explicit ``torch.Generator``. Each function also
-takes a tensor of uniforms, so a test can feed both frameworks the same
-draws (JAX's threefry and torch's Philox give different numbers).
+Random draws come from an explicit ``torch.Generator``, or a
+:class:`RowShard` of one. Each function also takes a tensor of uniforms,
+so a test can feed both frameworks the same draws (JAX's threefry and
+torch's Philox give different numbers).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+  """Rows [start, stop) of the draws ``generator`` makes for ``rows``
+  rows: one rank's share of a batch that every rank draws alike. Passed
+  where a generator is taken, each draw makes the numbers of all
+  ``rows`` rows and keeps this share, so the rank gets the numbers one
+  process drawing the whole batch would give those rows."""
+  generator: Optional[torch.Generator]
+  rows: int
+  start: int
+  stop: int
+
+
+def draw(fn, shape, generator, **kwargs) -> torch.Tensor:
+  """``fn(shape, generator=generator, **kwargs)`` (``torch.rand`` or
+  ``torch.randn``), taking a :class:`RowShard`'s rows of the full draw."""
+  if not isinstance(generator, RowShard):
+    return fn(shape, generator=generator, **kwargs)
+  if shape[0] != generator.stop - generator.start:
+    raise ValueError(f'a draw of {shape[0]} rows from a shard of '
+                     f'{generator.stop - generator.start}')
+  full = fn((generator.rows, *shape[1:]), generator=generator.generator,
+            **kwargs)
+  return full[generator.start:generator.stop]
 
 
 def _uniforms(shape, like: torch.Tensor, generator, uniforms):
@@ -17,8 +45,8 @@ def _uniforms(shape, like: torch.Tensor, generator, uniforms):
     if tuple(uniforms.shape) != tuple(shape):
       raise ValueError(f'uniforms shape {tuple(uniforms.shape)} != {shape}')
     return uniforms.to(device=like.device, dtype=like.dtype)
-  return torch.rand(shape, generator=generator, device=like.device,
-                    dtype=like.dtype)
+  return draw(torch.rand, shape, generator, device=like.device,
+              dtype=like.dtype)
 
 
 def sample_along_rays(origins: torch.Tensor, directions: torch.Tensor,

@@ -16,10 +16,18 @@ ends with ``eval_psnr`` on up to 10 strided val views, written to
 ``final_metrics.json``. ``main`` returns the final state, those metrics
 and the ray store it trained on.
 
-Single-device training is the only ported mode: ``--no_mesh`` is
-accepted and the trainer never builds a mesh. ``--sampling host`` raises
-``NotImplementedError``. ``--device`` (default ``cuda``) replaces the JAX
-script's ``--platform``.
+One model over N ranks, one process a device (``--device cpu``: gloo;
+``cuda``: NCCL, each rank on ``cuda:{LOCAL_RANK}``):
+
+  python -m torch.distributed.run --nproc_per_node N -m nerfds_torch.train \
+      --preset nerf_ds --datasource synthetic --exp_dir /tmp/exp/dp
+
+The global batch is ``--batch_size``, split over the ranks; rank 0 alone
+prints and writes ``experiment.json``, ``final_metrics.json`` and the
+trainer's files. ``--no_mesh`` trains on this process's device alone, as
+in ``scripts/train.py``. ``--sampling host`` keeps the ray store in host
+memory and samples it in a background thread. ``--device`` (default
+``cuda``) replaces the JAX script's ``--platform``.
 """
 from __future__ import annotations
 
@@ -115,21 +123,39 @@ def main(argv: Optional[Sequence[str]] = None):
                       help='compress the 250k-step annealing horizons to '
                            '--max_steps (same trajectory, shorter run)')
   parser.add_argument('--no_mesh', action='store_true',
-                      help='accepted; single-device is the only mode')
+                      help='train on this process\'s device alone')
   parser.add_argument('--sampling', default='auto',
                       choices=['auto', 'fused', 'host'],
-                      help="'fused': on-device minibatch gather; 'host' is "
-                           'not ported yet')
+                      help="'fused': on-device minibatch gather; 'host': "
+                           'background-thread sampler over a store in host '
+                           'memory (stores larger than the device)')
   parser.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
                       help="'cuda' (default) or 'cpu' for the plain path")
   args = parser.parse_args(argv)
 
+  import torch.distributed
+
+  from nerfds_torch.parallel import distributed
+  joined = distributed.initialize(
+      backend='gloo' if args.device == 'cpu' else None)
+  try:
+    return _train(args)
+  finally:
+    if joined:
+      torch.distributed.destroy_process_group()
+
+
+def _train(args):
   from nerfds_torch import config as config_lib
   from nerfds_torch import datasets as datasets_lib
   from nerfds_torch.device import resolve_device
+  from nerfds_torch.parallel import distributed
   from nerfds_torch.trainer import Trainer
 
-  device = resolve_device(args.device)
+  device = resolve_device(args.device if args.device == 'cpu'
+                          else f'cuda:{distributed.local_rank()}')
+  main_process = distributed.is_main_process()
+  say = print if main_process else (lambda *a, **k: None)
   model_cfg, train_cfg, datasource_type = preset_configs(
       args.preset, args.max_steps or 250000, args.scale_schedules)
   overrides = dict(kv.split('=', 1) for kv in args.set)
@@ -150,37 +176,41 @@ def main(argv: Optional[Sequence[str]] = None):
       datasource_type=args.datasource or datasource_type)
   datasource = datasets_lib.from_config(exp_cfg)
   exp_dir = Path(args.exp_dir)
-  exp_dir.mkdir(parents=True, exist_ok=True)
-  (exp_dir / 'experiment.json').write_text(config_lib.to_json(exp_cfg))
+  if main_process:
+    exp_dir.mkdir(parents=True, exist_ok=True)
+    (exp_dir / 'experiment.json').write_text(config_lib.to_json(exp_cfg))
 
-  print(f'device: {device}', flush=True)
+  say(f'device: {device}, ranks: {distributed.process_count()}', flush=True)
   trainer = Trainer.from_experiment(model_cfg, train_cfg, datasource,
-                                    exp_dir=exp_dir, use_mesh=False,
+                                    exp_dir=exp_dir,
+                                    use_mesh=not args.no_mesh,
                                     sampling=args.sampling, device=device)
   store = trainer.build_store()
-  print(f'ray store: {store.num_rays} rays, {store.nbytes / 2**20:.1f} MiB '
-        f'on {device}', flush=True)
+  say(f'ray store of rank 0: {store.num_rays} rays, '
+      f'{store.nbytes / 2**20:.1f} MiB '
+      f'on {"the host" if args.sampling == "host" else device}', flush=True)
 
   def log_fn(step, data):
     stats = data['stats']
     level = 'fine' if 'fine' in stats else 'coarse'
     t = data['time']
-    print(f"step {step} loss={stats[level]['loss/total']:.5f} "
-          f"psnr={stats[level]['metric/psnr']:.2f} "
-          f"steps/s={t.get('steps_per_sec', 0):.2f}", flush=True)
+    say(f"step {step} loss={stats[level]['loss/total']:.5f} "
+        f"psnr={stats[level]['metric/psnr']:.2f} "
+        f"steps/s={t.get('steps_per_sec', 0):.2f}", flush=True)
 
   start = time.time()
   state = trainer.train(log_fn=log_fn)
-  print(f'trained to step {state.step} in {time.time() - start:.1f} s',
-        flush=True)
+  say(f'trained to step {state.step} in {time.time() - start:.1f} s',
+      flush=True)
   # Up to 10 strided val views: full-split metrics are the eval CLI's job.
   val_ids = datasource.val_ids or datasource.train_ids[:1]
   stride = max(1, len(val_ids) // 10)
   start = time.time()
   metrics = trainer.eval_psnr(state, item_ids=val_ids[::stride][:10])
-  print(f'final val metrics ({time.time() - start:.1f} s):',
-        json.dumps(metrics), flush=True)
-  (exp_dir / 'final_metrics.json').write_text(json.dumps(metrics))
+  say(f'final val metrics ({time.time() - start:.1f} s):',
+      json.dumps(metrics), flush=True)
+  if main_process:
+    (exp_dir / 'final_metrics.json').write_text(json.dumps(metrics))
   return state, metrics, store
 
 

@@ -11,9 +11,14 @@ With an ``exp_dir`` the trainer writes ``model_config.json`` and
 ``train_config.json`` there, restores the latest checkpoint of
 ``checkpoints/`` when ``train()`` starts, saves one every ``save_every``
 steps and at the end, and writes the logged stats to ``summaries/``
-(``metrics.jsonl``, and TensorBoard when it imports). Not ported yet, and
-raising ``NotImplementedError`` (ROADMAP.md, queue 1): ``use_mesh=True``
-(data parallelism) and ``sampling='host'`` (``HostRayIterator``).
+(``metrics.jsonl``, and TensorBoard when it imports).
+
+With ``use_mesh`` (the default) the trainer is one rank of a data-parallel
+job (``parallel.create_mesh``; at one process, a mesh of one rank whose
+step is the step without a mesh, bit for bit): each rank loads its share
+of the train items, trains on ``batch_size / world`` rays a step, and the
+step averages the gradients over the ranks. Rank 0 alone writes the
+experiment directory; every rank restores from the same checkpoint.
 """
 from __future__ import annotations
 
@@ -27,14 +32,19 @@ import numpy as np
 import torch
 
 from nerfds_torch import config as config_lib
-from nerfds_torch.datasets.core import DataSource, RayStore
+from nerfds_torch.datasets.core import DataSource, HostRayIterator, RayStore
 from nerfds_torch.evaluation import metrics as metrics_lib
 from nerfds_torch.evaluation.render import render_image
 from nerfds_torch.models.nerfds import NerfDSModel, default_extra_params
+from nerfds_torch.parallel import distributed
+from nerfds_torch.parallel import mesh as mesh_lib
 from nerfds_torch.training import checkpoints as ckpt_lib
 from nerfds_torch.training.logging import MetricWriter
-from nerfds_torch.training.step import (TrainState, build_schedules,
-                                        eval_schedules, make_fused_train_step)
+from nerfds_torch.training.step import (TrainState, background_batch_size,
+                                        build_schedules, eval_schedules,
+                                        local_batch_size,
+                                        make_fused_train_step,
+                                        make_train_step)
 
 
 class TimeTracker:
@@ -97,41 +107,48 @@ def eval_extra_params(model_cfg: config_lib.ModelConfig,
   return extra
 
 
+def rank_seed(seed: int, rank: int):
+  """A numpy seed for ``rank``'s draws: ``seed`` itself on rank 0, so that
+  rank 0 draws what one process draws."""
+  return seed if rank == 0 else [seed, rank]
+
+
 @dataclasses.dataclass
 class Trainer:
   """Builds and runs a training experiment on ``model``'s device.
 
   sampling: 'auto' and 'fused' gather the minibatch on the device inside
-  the step; 'host' is not ported yet.
+  the step; 'host' keeps the store in host memory and feeds the step
+  batches that a ``HostRayIterator`` puts on the device ahead of use (for
+  stores larger than the device). use_mesh: see the module docstring.
   """
   model: NerfDSModel
   train_cfg: config_lib.TrainConfig
   datasource: DataSource
   exp_dir: Optional[Path] = None
-  use_mesh: bool = False
+  use_mesh: bool = True
   sampling: str = 'auto'
 
   def __post_init__(self):
-    if self.use_mesh:
-      raise NotImplementedError(
-          'use_mesh=True: data-parallel training is not ported yet; see '
-          'ROADMAP.md, queue 1 item 10')
     if self.sampling == 'auto':
       self.sampling = 'fused'
-    if self.sampling != 'fused':
-      raise NotImplementedError(
-          f'sampling={self.sampling!r}: only the on-device gather is ported '
-          '(HostRayIterator waits); see ROADMAP.md, queue 1')
+    if self.sampling not in ('fused', 'host'):
+      raise ValueError(f'sampling={self.sampling!r}: one of auto, fused, '
+                       'host')
+    self.mesh = (mesh_lib.create_mesh(self.model.device) if self.use_mesh
+                 else None)
     self.ckpt = self.metrics_writer = None
     if self.exp_dir is not None:
       self.exp_dir = Path(self.exp_dir)
-      self.exp_dir.mkdir(parents=True, exist_ok=True)
-      (self.exp_dir / 'model_config.json').write_text(
-          config_lib.to_json(self.model.config))
-      (self.exp_dir / 'train_config.json').write_text(
-          config_lib.to_json(self.train_cfg))
+      if distributed.is_main_process():
+        self.exp_dir.mkdir(parents=True, exist_ok=True)
+        (self.exp_dir / 'model_config.json').write_text(
+            config_lib.to_json(self.model.config))
+        (self.exp_dir / 'train_config.json').write_text(
+            config_lib.to_json(self.train_cfg))
+        self.metrics_writer = MetricWriter(self.exp_dir / 'summaries')
+      distributed.barrier()
       self.ckpt = ckpt_lib.CheckpointManager(self.exp_dir / 'checkpoints')
-      self.metrics_writer = MetricWriter(self.exp_dir / 'summaries')
     self._store: Optional[RayStore] = None
     self._background_points: Optional[torch.Tensor] = None
 
@@ -141,7 +158,7 @@ class Trainer:
   def from_experiment(cls, model_cfg: config_lib.ModelConfig,
                       train_cfg: config_lib.TrainConfig,
                       datasource: DataSource, exp_dir=None,
-                      use_mesh: bool = False, sampling: str = 'auto',
+                      use_mesh: bool = True, sampling: str = 'auto',
                       device=None) -> 'Trainer':
     """The model on ``device`` (``cuda`` unless the caller passes another),
     its embedding counts from the datasource's train items."""
@@ -159,10 +176,19 @@ class Trainer:
                use_mesh=use_mesh, sampling=sampling)
 
   def build_store(self) -> RayStore:
-    """The train items' rays on the model's device, built once."""
+    """The train items' rays, built once: this process's share of them
+    (``process_local=True``), on the model's device (under the mesh,
+    trimmed to the rows every rank holds), or in host memory for
+    ``sampling='host'``."""
     if self._store is None:
-      self._store = self.datasource.build_ray_store(
-          self.datasource.train_ids).to(self.model.device)
+      store = self.datasource.build_ray_store(self.datasource.train_ids,
+                                              process_local=True)
+      if self.sampling == 'host':
+        self._store = store
+      elif self.mesh is not None:
+        self._store = store.to_mesh(self.mesh)
+      else:
+        self._store = store.to(self.model.device)
     return self._store
 
   def background_points(self) -> Optional[torch.Tensor]:
@@ -178,14 +204,17 @@ class Trainer:
     return self._background_points
 
   def init_state(self, seed: int = 0) -> TrainState:
-    """Fresh parameters, initialised from ``seed``, and zero moments."""
+    """Fresh parameters, initialised from ``seed``, and zero moments. Under
+    the mesh every rank takes rank 0's parameters (the CPU generator
+    already makes them equal)."""
     m = self.model
     fresh = NerfDSModel(
         m.config, num_warp_embeds=m.num_warp_embeds,
         num_hyper_embeds=m.num_hyper_embeds,
         num_nerf_embeds=m.num_nerf_embeds, near=m.near, far=m.far,
         generator=torch.Generator().manual_seed(seed), device=m.device)
-    return TrainState.create(dict(fresh.named_parameters()))
+    return TrainState.create(mesh_lib.broadcast(
+        {k: v.detach() for k, v in fresh.named_parameters()}, self.mesh))
 
   # -- the loop -------------------------------------------------------------
 
@@ -196,7 +225,9 @@ class Trainer:
     """Runs steps up to ``num_steps``; ``log_fn(step, {'stats', 'time'})``
     every ``print_every`` steps and at the last. Step k draws its random
     numbers from a generator seeded with (``random_seed``, k), so a run
-    resumed from a checkpoint takes the steps an unbroken run would."""
+    resumed from a checkpoint takes the steps an unbroken run would.
+    Under the mesh, rank r > 0 seeds with r as well, and rank 0 draws what
+    one process draws."""
     cfg = self.train_cfg
     num_steps = num_steps if num_steps is not None else cfg.max_steps
     if store is None:
@@ -205,11 +236,51 @@ class Trainer:
       state = self.init_state(cfg.random_seed)
     if self.ckpt is not None:
       state, _ = self.ckpt.restore(state)
-    step_fn = make_fused_train_step(self.model, cfg, store,
-                                    self.background_points())
+    rank = self.mesh.rank if self.mesh is not None else 0
+    host_iter = None
+    try:
+      if self.sampling == 'host':
+        host_iter = HostRayIterator(
+            store, local_batch_size(cfg, self.mesh),
+            seed=rank_seed(cfg.random_seed, rank), device=self.model.device)
+        step_fn = self._host_step(host_iter, rank)
+      else:
+        step_fn = make_fused_train_step(self.model, cfg, store,
+                                        self.background_points(), self.mesh)
+      return self._run(step_fn, state, num_steps, rank, log_fn)
+    finally:
+      if host_iter is not None:
+        host_iter.close()
 
+  def _host_step(self, host_iter: HostRayIterator, rank: int):
+    """step(state, generator) on the iterator's batches, with the
+    background points drawn on the host from ``RandomState(random_seed +
+    31)``, as the JAX package's host path draws them."""
+    cfg = self.train_cfg
+    explicit = make_train_step(self.model, cfg, self.mesh)
+    points = None
+    if cfg.use_background_loss:
+      points = self.datasource.load_points(shuffle=True)
+    if points is not None:
+      points = np.asarray(points, np.float32)
+      n_bg = background_batch_size(cfg, points.shape[0], self.mesh)
+      bg_rng = np.random.RandomState(rank_seed(cfg.random_seed + 31, rank))
+
+    def step_fn(state: TrainState, generator: torch.Generator):
+      batch = next(host_iter)
+      if points is not None:
+        idx = bg_rng.randint(0, points.shape[0], n_bg)
+        batch['background_points'] = torch.as_tensor(
+            points[idx], device=self.model.device)
+      return explicit(state, batch, generator)
+
+    return step_fn
+
+  def _run(self, step_fn, state: TrainState, num_steps: int, rank: int,
+           log_fn) -> TrainState:
+    cfg = self.train_cfg
     generator = torch.Generator(device=self.model.device)
-    base_seed = (cfg.random_seed + 17) << 32
+    base_seed = ((cfg.random_seed + 17) << 32) | (rank << 56)
     tracker = TimeTracker()
     for step in range(state.step, num_steps):
       tracker.tic('total')
@@ -227,10 +298,16 @@ class Trainer:
       else:
         tracker.toc('total')
       if self.ckpt is not None and (step + 1) % cfg.save_every == 0:
-        self.ckpt.save(step + 1, state)
+        self._save(step + 1, state)
     if self.ckpt is not None and num_steps % cfg.save_every != 0:
-      self.ckpt.save(num_steps, state)
+      self._save(num_steps, state)
     return state
+
+  def _save(self, step: int, state: TrainState) -> None:
+    """Rank 0 writes the checkpoint; every rank waits for it."""
+    if distributed.is_main_process():
+      self.ckpt.save(step, state)
+    distributed.barrier()
 
   def _write_summaries(self, step: int, state: TrainState,
                        stats: Dict[str, Any], hists: Dict[str, np.ndarray],
@@ -275,7 +352,7 @@ class Trainer:
       rays = {k: item[k] for k in ('origins', 'directions', 'mask',
                                    'metadata')}
       out = render_image(
-          model, rays, extra, chunk=chunk, keys=('rgb',),
+          model, rays, extra, chunk=chunk, keys=('rgb',), mesh=self.mesh,
           generator=torch.Generator(device=model.device).manual_seed(0))
       m = metrics_lib.compute_all(out['rgb'], item['rgb'],
                                   device=model.device)

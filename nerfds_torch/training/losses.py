@@ -18,6 +18,7 @@ import torch
 from nerfds_torch.config import ModelConfig, TrainConfig
 from nerfds_torch.ops import math as math_ops
 from nerfds_torch.ops import rendering
+from nerfds_torch.parallel import mesh as mesh_lib
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -28,14 +29,18 @@ EMPTY_ALPHA_STEEPNESS = 100.0
 
 
 def percentile_stats(stats: Tensors, name: str, array: torch.Tensor,
-                     percentile_step: int = 10) -> None:
+                     percentile_step: int = 10,
+                     mesh: Optional[mesh_lib.DataMesh] = None) -> None:
   """Deciles of ``array`` as 'percentile/<name>_<p>' stats (linear
-  interpolation, as ``jnp.percentile``)."""
+  interpolation, as ``jnp.percentile``); under ``mesh``, of every rank's
+  ``array`` together, as the JAX package's sharded step takes them over
+  the global batch."""
   ps = list(range(0, 101, percentile_step))
   # Made on array's device: a copy from the host would synchronise.
   qs = torch.arange(0, 101, percentile_step,
                     device=array.device).to(array.dtype) / 100
-  values = torch.quantile(array.reshape(-1), qs)
+  values = torch.quantile(
+      mesh_lib.all_gather_rows(array.detach().reshape(-1), mesh), qs)
   for i, p in enumerate(ps):
     stats[f'percentile/{name}_{p}'] = values[i]
 
@@ -133,8 +138,10 @@ def compute_loss_and_stats(
     *,
     use_elastic_loss: bool = False,
     use_hyper_reg_loss: bool = False,
+    mesh: Optional[mesh_lib.DataMesh] = None,
 ) -> Tuple[torch.Tensor, Tensors]:
-  """One level's total loss and its stats."""
+  """One level's total loss and its stats (``mesh``: see
+  ``percentile_stats``)."""
   stats: Tensors = {}
 
   rgb_loss = rgb_loss_fn(model_out['rgb'], batch['rgb'],
@@ -225,7 +232,7 @@ def compute_loss_and_stats(
     empty_space_loss = (low_alpha * mask_size).sum(1).mean()
     stats['loss/empty_space_mask'] = empty_space_loss
     if train_cfg.log_percentiles:
-      percentile_stats(stats, 'alpha', alpha)
+      percentile_stats(stats, 'alpha', alpha, mesh=mesh)
     stats['stats/low_alpha_mean'] = low_alpha.mean()
     stats['stats/predicted_mask_max'] = predicted_mask.max()
     predicted_mask_loss = (
@@ -248,7 +255,7 @@ def compute_loss_and_stats(
     predicted_mask_loss = ((gt_mask - ray_predicted_mask) ** 2).mean()
     stats['loss/predicted_mask'] = predicted_mask_loss
     if train_cfg.log_percentiles:
-      percentile_stats(stats, '3d_mask', predicted_mask)
+      percentile_stats(stats, '3d_mask', predicted_mask, mesh=mesh)
     stats['stats/weights_sum'] = weights.sum(1).mean()
     loss = loss + train_cfg.predicted_mask_loss_weight * predicted_mask_loss
     if train_cfg.use_mask_occlusion_reg_loss:

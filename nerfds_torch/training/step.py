@@ -17,6 +17,13 @@
 * ``make_fused_train_step`` gathers the minibatch on the device from a
   device-resident ``RayStore`` inside the step, and the background loss's
   points from a device-resident set of static points.
+* Under a data mesh (``parallel.DataMesh``) each rank takes
+  ``batch_size / world`` rays, the fused step from its own store shard
+  with its own generator. The gradients are averaged over the ranks after
+  they are taken and before they are frozen, clipped and given to Adam,
+  as the JAX partitioner reduces before the clip; the scalar stats are
+  averaged too, so every rank logs the global batch's. At world size 1
+  the step is the step without a mesh, bit for bit.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from nerfds_torch.config import TrainConfig
 from nerfds_torch.datasets.core import RayStore, sample_batch
 from nerfds_torch.models.nerfds import NerfDSModel
 from nerfds_torch.ops import math as math_ops
+from nerfds_torch.parallel import mesh as mesh_lib
 from nerfds_torch.training import losses as losses_lib
 from nerfds_torch.training import schedules as schedules_lib
 
@@ -90,7 +98,23 @@ def _freeze_subtree_grads(grads: Params, prefix: str) -> Params:
           for k, g in grads.items()}
 
 
-def make_loss_fn(model: NerfDSModel, train_cfg: TrainConfig
+def _strided_rows(x: torch.Tensor, mesh: Optional[mesh_lib.DataMesh],
+                  limit: int = 2048) -> torch.Tensor:
+  """Every ``stride``-th row of the global batch's ``x``, ``stride =
+  max(1, rows // limit)``, on every rank: under a mesh each rank picks its
+  share of those rows and the shares are gathered."""
+  n = x.shape[0]
+  world = mesh.world_size if mesh is not None else 1
+  stride = max(1, n * world // limit)
+  if world == 1:
+    return x[::stride]
+  first = [(-r * n) % stride for r in range(world)]
+  counts = [len(range(f, n, stride)) for f in first]
+  return mesh_lib.all_gather_rows(x[first[mesh.rank]::stride], mesh, counts)
+
+
+def make_loss_fn(model: NerfDSModel, train_cfg: TrainConfig,
+                 mesh: Optional[mesh_lib.DataMesh] = None
                  ) -> Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]:
   """loss_fn(params, batch, generator, scalars) -> (total, stats): the
   coarse plus fine loss of the model run on ``params``.
@@ -101,7 +125,10 @@ def make_loss_fn(model: NerfDSModel, train_cfg: TrainConfig
   ``batch['background_points']`` the background loss is added; its draws
   come from ``generator`` after the render's, or from
   ``batch['background_metadata']`` and ``batch['background_noise']`` where
-  the caller gives them. A batch without points trains without it."""
+  the caller gives them. A batch without points trains without it.
+
+  Under ``mesh`` the batch is this rank's rows; the percentile stats and
+  the 'hist/*' samples are taken over the global batch."""
   model_cfg = model.config
 
   def loss_fn(params, batch, generator, scalars):
@@ -118,12 +145,12 @@ def make_loss_fn(model: NerfDSModel, train_cfg: TrainConfig
     stats: Dict[str, Any] = {}
     if 'fine' in out:
       fine_loss, stats['fine'] = losses_lib.compute_loss_and_stats(
-          model_cfg, train_cfg, out['fine'], batch, scalars)
+          model_cfg, train_cfg, out['fine'], batch, scalars, mesh=mesh)
       total = total + fine_loss
     coarse_loss, stats['coarse'] = losses_lib.compute_loss_and_stats(
         model_cfg, train_cfg, out['coarse'], batch, scalars,
         use_elastic_loss=train_cfg.use_elastic_loss,
-        use_hyper_reg_loss=train_cfg.use_hyper_reg_loss)
+        use_hyper_reg_loss=train_cfg.use_hyper_reg_loss, mesh=mesh)
     total = total + coarse_loss
 
     if train_cfg.use_background_loss and 'background_points' in batch:
@@ -138,18 +165,16 @@ def make_loss_fn(model: NerfDSModel, train_cfg: TrainConfig
       stats['loss/background'] = background_loss
 
     if train_cfg.log_histograms:
-      # Strided samples of the warped points, at most 2048, for histograms.
+      # Strided samples of the warped points, about 2048, for histograms.
       o = out['fine' if 'fine' in out else 'coarse']
       warped = o['warped_points'].detach()
       points = o['points'].detach()
-      spatial = warped[..., :3].reshape(-1, 3)
-      delta = (warped[..., :3] - points).reshape(-1, 3)
-      stride = max(1, spatial.shape[0] // 2048)
-      stats['hist/spatial_points'] = spatial[::stride]
-      stats['hist/spatial_points_delta'] = delta[::stride]
+      rows = torch.cat([warped, warped[..., :3] - points], -1)
+      rows = _strided_rows(rows.reshape(-1, rows.shape[-1]), mesh)
+      stats['hist/spatial_points'] = rows[:, :3]
+      stats['hist/spatial_points_delta'] = rows[:, -3:]
       if warped.shape[-1] > 3:
-        hyper = warped[..., 3:].reshape(-1, warped.shape[-1] - 3)
-        stats['hist/hyper_points'] = hyper[::stride]
+        stats['hist/hyper_points'] = rows[:, 3:warped.shape[-1]]
     return total, stats
 
   return loss_fn
@@ -216,6 +241,39 @@ def _accum_grads(loss_fn, params: Params, batch, generator, scalars,
           _stack_stats(all_stats))
 
 
+def _stat_leaves(stats, path=()):
+  for k, v in stats.items():
+    if isinstance(v, dict):
+      yield from _stat_leaves(v, path + (k,))
+    else:
+      yield path + (k,), v
+
+
+def _mesh_reduce(grads: Params, stats, mesh: mesh_lib.DataMesh):
+  """The global batch's gradients and stats from this rank's: the mean
+  over the ranks of the gradients and of the scalar stats in one
+  collective, the largest of each '*_max' stat in another, and each
+  level's PSNR from the mean rgb loss. 'percentile/*' and 'hist/*' are
+  the global batch's already (``make_loss_fn``)."""
+  mean, peak = {}, {}
+  for path, v in _stat_leaves(stats):
+    name = path[-1]
+    if name.startswith(('hist/', 'percentile/')) or name == 'metric/psnr':
+      continue
+    (peak if name.endswith('_max') else mean)[path] = v
+  reduced = mesh_lib.all_reduce_mean({**grads, **mean}, mesh)
+  reduced.update(mesh_lib.all_reduce_max(peak, mesh))
+  for path in (*mean, *peak):
+    level = stats
+    for k in path[:-1]:
+      level = level[k]
+    level[path[-1]] = reduced[path]
+  for level in stats.values():
+    if isinstance(level, dict) and 'metric/psnr' in level:
+      level['metric/psnr'] = math_ops.compute_psnr(level['loss/rgb'])
+  return {k: reduced[k] for k in grads}, stats
+
+
 def adam_update(grads: Params, state: AdamState,
                 b1: float = ADAM_B1, b2: float = ADAM_B2,
                 eps: float = ADAM_EPS) -> Tuple[Params, AdamState]:
@@ -252,49 +310,77 @@ def _apply(state: TrainState, grads: Params, stats, scalars,
                     opt_state=opt_state), stats
 
 
-def make_train_step(model: NerfDSModel, train_cfg: TrainConfig):
-  """step(state, batch, generator=None) -> (new state, stats)."""
+def make_train_step(model: NerfDSModel, train_cfg: TrainConfig,
+                    mesh: Optional[mesh_lib.DataMesh] = None):
+  """step(state, batch, generator=None) -> (new state, stats). Under
+  ``mesh``, ``batch`` is this rank's rows of the global batch
+  (``parallel.shard_batch``)."""
   schedules = build_schedules(train_cfg)
-  loss_fn = make_loss_fn(model, train_cfg)
+  mesh_lib.check_batch_norm(model.config.norm_type, mesh)
+  loss_fn = make_loss_fn(model, train_cfg, mesh)
   accum = max(int(train_cfg.accum_steps), 1)
+  reduce = mesh is not None and mesh.world_size > 1
 
   def step_fn(state: TrainState, batch, generator=None):
     scalars = eval_schedules(schedules, state.step)
     grads, stats = _accum_grads(loss_fn, state.params, batch, generator,
                                 scalars, accum)
+    if reduce:
+      grads, stats = _mesh_reduce(grads, stats, mesh)
     return _apply(state, grads, stats, scalars, train_cfg)
 
   return step_fn
 
 
+def local_batch_size(train_cfg: TrainConfig,
+                     mesh: Optional[mesh_lib.DataMesh]) -> int:
+  """This rank's rays a step: ``batch_size / world``."""
+  world = mesh.world_size if mesh is not None else 1
+  if train_cfg.batch_size % world:
+    raise ValueError(f'batch_size={train_cfg.batch_size} does not divide '
+                     f'over {world} ranks')
+  return train_cfg.batch_size // world
+
+
+def background_batch_size(train_cfg: TrainConfig, num_points: int,
+                          mesh: Optional[mesh_lib.DataMesh]) -> int:
+  """This rank's background points a step: min(P,
+  ``background_points_batch_size``) rounded down to a multiple of world ×
+  ``accum_steps``, so that the ranks and the microbatches split them
+  evenly, divided by the world size."""
+  accum = max(int(train_cfg.accum_steps), 1)
+  world = mesh.world_size if mesh is not None else 1
+  n_bg = min(num_points, train_cfg.background_points_batch_size)
+  n_bg -= n_bg % (accum * world)
+  if n_bg == 0:
+    # A mean over no points is NaN, which would reach every parameter.
+    raise ValueError(
+        f'{num_points} background points and background_points_batch_size='
+        f'{train_cfg.background_points_batch_size} leave no point for '
+        f'each of accum_steps={accum} microbatches on {world} ranks')
+  return n_bg // world
+
+
 def make_fused_train_step(model: NerfDSModel, train_cfg: TrainConfig,
                           store: RayStore,
-                          background_points: Optional[torch.Tensor] = None):
+                          background_points: Optional[torch.Tensor] = None,
+                          mesh: Optional[mesh_lib.DataMesh] = None):
   """step(state, generator) -> (new state, stats), gathering a uniform
-  minibatch of ``train_cfg.batch_size`` rays from the device-resident
-  ``store`` with ``generator`` (on the store's device) inside the step.
+  minibatch of ``train_cfg.batch_size`` rays (``/ world`` under ``mesh``,
+  from this rank's ``store``) from the device-resident ``store`` with
+  ``generator`` (on the store's device) inside the step.
 
   With ``use_background_loss`` and ``background_points`` [P, 3] on the
-  store's device, each step also draws min(P,
-  ``background_points_batch_size``) of them, rounded down to a multiple of
-  ``accum_steps`` so that the microbatches split them evenly."""
-  explicit = make_train_step(model, train_cfg)
+  store's device, each step also draws ``background_batch_size`` of
+  them."""
+  explicit = make_train_step(model, train_cfg, mesh)
+  batch_size = local_batch_size(train_cfg, mesh)
   n_bg = 0
   if train_cfg.use_background_loss and background_points is not None:
-    accum = max(int(train_cfg.accum_steps), 1)
-    n_bg = min(background_points.shape[0],
-               train_cfg.background_points_batch_size)
-    n_bg -= n_bg % accum
-    if n_bg == 0:
-      # A mean over no points is NaN, which would reach every parameter.
-      raise ValueError(
-          f'{background_points.shape[0]} background points and '
-          f'background_points_batch_size='
-          f'{train_cfg.background_points_batch_size} leave no point for '
-          f'each of accum_steps={accum} microbatches')
+    n_bg = background_batch_size(train_cfg, background_points.shape[0], mesh)
 
   def step_fn(state: TrainState, generator: torch.Generator):
-    batch = sample_batch(store, generator, train_cfg.batch_size)
+    batch = sample_batch(store, generator, batch_size)
     if n_bg:
       idx = torch.randint(0, background_points.shape[0], (n_bg,),
                           generator=generator,

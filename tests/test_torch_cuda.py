@@ -588,3 +588,37 @@ def test_variant_step_kernel_path_matches_plain_on_card(cuda, name):
   if name == 'bone':
     assert float(got['bone_warp_field.moving_mlp.hidden_0.kernel'].abs()
                  .max()) > 0
+
+
+@pytest.mark.cuda
+def test_host_ray_iterator_on_card(cuda):
+  """Batches copied on the sampler's side stream reach the consumer's
+  stream as numpy's gather of RandomState(seed)'s indices; close() joins
+  the worker."""
+  from nerfds_torch.datasets.core import HostRayIterator, RayStore
+  rng = np.random.RandomState(0)
+  columns = dict(origins=rng.randn(5000, 3).astype(np.float32),
+                 directions=rng.randn(5000, 3).astype(np.float32),
+                 rgb=rng.rand(5000, 3).astype(np.float32),
+                 mask=rng.rand(5000, 1).astype(np.float32),
+                 metadata={'warp': rng.randint(0, 9, (5000, 1)).astype(
+                     np.int32)})
+  it = HostRayIterator(RayStore.from_dict(columns), 512, seed=3, device=cuda)
+  draws = np.random.RandomState(3)
+  try:
+    for _ in range(6):
+      batch = next(it)
+      idx = draws.randint(0, 5000, 512)
+      # Work on the consumer's stream first: a batch read before its copy
+      # landed would differ.
+      total = sum(float(batch[k].double().sum()) for k in ('origins', 'rgb'))
+      for k in ('origins', 'directions', 'rgb', 'mask'):
+        assert batch[k].device.type == 'cuda'
+        np.testing.assert_array_equal(batch[k].cpu().numpy(), columns[k][idx])
+      np.testing.assert_array_equal(batch['metadata']['warp'].cpu().numpy(),
+                                    columns['metadata']['warp'][idx])
+      assert total == pytest.approx(float(columns['origins'][idx].sum(
+          dtype=np.float64) + columns['rgb'][idx].sum(dtype=np.float64)))
+  finally:
+    it.close()
+  assert not it._thread.is_alive()

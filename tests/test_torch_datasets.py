@@ -16,8 +16,10 @@ import pytest
 import torch
 
 from nerfds_tpu import datasets as jdatasets
+from nerfds_tpu import gpath as jgpath
 from nerfds_tpu.datasets import synthetic as jsynthetic
 from nerfds_torch import datasets as tdatasets
+from nerfds_torch import gpath
 from nerfds_torch import image_utils, viz
 from nerfds_torch.datasets import synthetic as tsynthetic
 
@@ -401,3 +403,23 @@ def test_interp_source_matches_jax(tmp_path):
                         want.build_ray_store(want.train_ids))
   with pytest.raises(ValueError, match='Not enough frames'):
     tdatasets.InterpDataSource(tmp_path, interval=8)
+
+
+def test_gpath_matches_jax(tmp_path):
+  for s in ('gs://bucket/scene', 'gs:bucket', 's3://b/k', 'file:///tmp/x',
+            '/tmp/x', 'relative/dir', 'gsx/data', '', 'a/gs://b'):
+    assert gpath.is_remote(s) == jgpath.is_remote(s), s
+  # Local paths behave as the JAX package's GPath (epath where etils
+  # imports, pathlib otherwise).
+  got, want = gpath.GPath(tmp_path, 'a'), jgpath.GPath(tmp_path, 'a')
+  assert str(got) == str(want) and str(got / 'b.json') == str(want / 'b.json')
+  got.mkdir()
+  (got / 'b.json').write_text('{"x": 1}')
+  assert (want / 'b.json').exists()
+  assert json.loads((want / 'b.json').read_text()) == {'x': 1}
+  assert sorted(p.name for p in got.glob('*.json')) == sorted(
+      p.name for p in want.glob('*.json'))
+  with pytest.raises(ValueError, match='gs://bucket/scene'):
+    gpath.GPath('gs://bucket/scene')
+  with pytest.raises(ValueError, match='gs://bucket'):
+    gpath.GPath('gs://bucket', 'scene.json')

@@ -359,8 +359,10 @@ def test_train_and_eval_clis_on_cpu(tmp_path):
   panels = sorted((exp / 'renders' / '4').rglob('*.png'))
   assert [p.parent.name for p in panels] == ['train', 'val']
   assert panels[0].read_bytes()[:8] == b'\x89PNG\r\n\x1a\n'
-  with pytest.raises(NotImplementedError):
-    train_cli.main([*args, '--max_steps', '5', '--sampling', 'host'])
+  # --sampling host trains step 5 from the step-4 checkpoint.
+  state, metrics, _ = train_cli.main([*args, '--max_steps', '5',
+                                      '--sampling', 'host'])
+  assert state.step == 5 and np.isfinite(metrics['psnr'])
 
 
 def test_parse_value_and_every_source_from_config(tmp_path):

@@ -410,14 +410,18 @@ def test_trainer_loss_decreases_on_cpu():
   assert trainer.build_store() is trainer.build_store()
 
 
-def test_unported_options_raise():
+def test_mesh_and_host_sampling_train_and_unported_options_raise():
   source = tsynthetic.SyntheticDataSource(num_frames=4, image_size=8,
                                           gt_samples=8)
   model = torch_model()
   train_cfg = toy_train_cfg(tconfig)
+  # The two options that once raised here build and step now.
   for kwargs in ({'use_mesh': True}, {'sampling': 'host'}):
-    with pytest.raises(NotImplementedError):
-      Trainer(model=model, train_cfg=train_cfg, datasource=source, **kwargs)
+    logged = []
+    state = Trainer(model=model, train_cfg=train_cfg, datasource=source,
+                    **kwargs).train(num_steps=1, log_fn=lambda step, log: (
+                        logged.append(log['stats']['fine']['loss/total'])))
+    assert state.step == 1 and np.isfinite(logged).all(), kwargs
   with pytest.raises(NotImplementedError):
     tsynthetic.SyntheticDataSource(num_frames=4, gt_backend='jax')
   # The model options that once raised here build now, and the bone
