@@ -102,16 +102,42 @@
    ``sampling='host'``, 24 steps, its first batches bit-equal to numpy's
    gather, no sampler thread left, its steady step beside the fused
    gather's. Every case's steady step and host waits.
-15. Prints one JSON line describing every kernel, the two bf16 modes of
+15. The measuring and study CLIs, in this process or as child processes:
+   (a) first each kernel of the bench's path against its plain version at
+   the bench's shapes at batch 2048 (K1f and K1b, float32 and bf16, on
+   131,072 and 262,144 rows; K2 on [2048, 64] and [2048, 128]), and one
+   step of ``bench.build(2048)`` on the kernel path against the plain
+   path, every Adam first moment within 1e-3 of its norm; then
+   ``python -m nerfds_torch.bench`` at batch 2048 (5 chains of 8
+   steps) and 512 (``--quick``), on the kernel path with its baseline and
+   on the plain path: one JSON line with ``bench.py``'s keys and "path",
+   K1f, K1b and K2 twice a step on the kernel path, none of them on the
+   plain path and in the baseline ('naive' ∇σ, concat inputs, plain
+   compositing), each run's chains and peak memory; (b) ``bench_ablate``
+   on the kernel path, every row timed but the four top-k rows, which are
+   refused (top-k acts only in 'vmap' or 'naive'), the 'bf16' row on K1f
+   and K1b in bf16 twice a step and K1 in float32 never; then the plain
+   path's 'full' and 'topk16' rows; (c) ``bench_scaling`` under
+   ``torch.distributed.run``: one rank at 2048 rays (within 25% of (a)'s
+   kernel path), two gloo ranks sharing the card, NCCL over the cards
+   where there are two or more; (d) ``convergence_run``,
+   ``normals_ablation`` and ``batch_scaling_study`` at cut sizes (K1b
+   twice a training step, or a microbatch, of a case that takes ∇σ;
+   ``convergence_run``'s normal fidelity scores at least one pixel, with
+   a finite cosine),
+   then ``run_scenes`` over a capture exported on the card and a missing
+   directory (a failure row in ``summary.csv``).
+16. Prints one JSON line describing every kernel, the two bf16 modes of
    the trunk kernels included ("launches": the render's count for K1f and
    K2, the training run's for K1b, the eval path's for K3, phase 10(c)'s
    for the bf16 modes; "launches_render", "launches_train",
    "launches_capture", "launches_speed_modes", "launches_deformation",
-   "launches_radiance", "launches_variants" and "launches_parallel" for
-   all six), a line of the training numbers, a line of the eval numbers,
-   a line of the capture numbers, a line each of the speed modes', the
-   deformation family's, the radiance variants', the model variants' and
-   phase 14's numbers, the card's line, and as the last line
+   "launches_radiance", "launches_variants", "launches_parallel" and
+   "launches_bench" for all six), a line of the training numbers, a line
+   of the eval numbers, a line of the capture numbers, a line each of the
+   speed modes', the deformation family's, the radiance variants', the
+   model variants', phase 14's and phase 15's numbers ("bench:"), the
+   card's line, and as the last line
    ``{"ok": true, "device": {...}}``. K2's and K3's
    entries hold their times at every timed shape under "shapes"; K3's
    σ/normal head there also holds its library call's time
@@ -263,6 +289,29 @@ def composite_inputs(torch, num_rays, num_samples, gen, device):
   return rgb, sigma, z, dirs
 
 
+def check_composite(torch, args):
+  """K2 against its plain version on ``args`` (``composite_inputs``), with
+  and without the sample at infinity; returns the largest |got - want|."""
+  from nerfds_torch.kernels import composite
+  names = ('rgb', 'depth', 'acc_all', 'weights', 'alpha', 'accum')
+  # Tolerance: float32; the kernel forms the running product by a warp scan
+  # (a tree of products over 32 samples, then the product of the earlier
+  # chunks) and sums by lanes and a butterfly, so it associates differently
+  # from torch.cumprod / torch.sum: a relative error of a few float32 ulps
+  # per factor over up to 129 factors.
+  atol, rtol = 1e-5, 1e-4
+  num_rays, num_samples = args[1].shape
+  max_err = 0.0
+  for at_inf in (True, False):
+    got = composite.composite_forward(*args, at_inf)
+    want = composite.composite_reference(*args, at_inf)
+    torch.cuda.synchronize()
+    print(f' R={num_rays} S={num_samples} sample_at_infinity={at_inf}')
+    for n, g, w in zip(names, got, want):
+      max_err = max(max_err, compare(torch, n, g, w, atol, rtol))
+  return max_err
+
+
 def composite_bound(r: int, s: int):
   """(ms, what bounds it) of K2 on R rays of S samples: each input read
   once, each output written once, float32; about 12 operations a sample."""
@@ -282,24 +331,11 @@ def phase_composite(torch, device):
   from nerfds_torch.kernels import composite
   print('== K2 composite_fwd vs plain version')
   gen = torch.Generator(device=device).manual_seed(0)
-  names = ('rgb', 'depth', 'acc_all', 'weights', 'alpha', 'accum')
-  # Tolerance: float32; the kernel forms the running product by a warp scan
-  # (a tree of products over 32 samples, then the product of the earlier
-  # chunks) and sums by lanes and a butterfly, so it associates differently
-  # from torch.cumprod / torch.sum: a relative error of a few float32 ulps
-  # per factor over up to 129 factors.
-  atol, rtol = 1e-5, 1e-4
   max_err, main, shapes = 0.0, None, {}
   flush = torch.empty(2**26, device=device)  # 256 MB, five times the L2
   for num_rays, num_samples in K2_SHAPES:
     args = composite_inputs(torch, num_rays, num_samples, gen, device)
-    for at_inf in (True, False):
-      got = composite.composite_forward(*args, at_inf)
-      want = composite.composite_reference(*args, at_inf)
-      torch.cuda.synchronize()
-      print(f' R={num_rays} S={num_samples} sample_at_infinity={at_inf}')
-      for n, g, w in zip(names, got, want):
-        max_err = max(max_err, compare(torch, n, g, w, atol, rtol))
+    max_err = max(max_err, check_composite(torch, args))
     if num_rays == 4099:
       continue
     ms = device_ms(torch, lambda: composite.composite_forward(*args))
@@ -512,34 +548,42 @@ def phase_fused_mlp(torch, device):
               max_abs_err=max_err, library_ms=None, **main, shapes=shapes)
 
 
+def check_trunk_fwd(torch, device, spec, weights, n: int):
+  """K1f against its plain version on N rows of random feat; returns (max
+  abs error, feat)."""
+  from nerfds_torch.kernels import fused_trunk
+  names = ('sigma', 'normal', 'trunk_out', 'bottleneck', 'g')
+  gen = torch.Generator(device=device).manual_seed(n)
+  feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
+  got = fused_trunk.trunk_sigma_grad(feat, weights, spec)
+  want = fused_trunk.trunk_sigma_grad_reference(feat, weights, spec)
+  torch.cuda.synchronize()
+  print(f' N={n}')
+  max_err = 0.0
+  for name, g, w in zip(names, got, want):
+    # Tolerance: float32 sums over 256 channels in another order than
+    # cuBLAS. g also follows the relu masks: where a pre-activation is
+    # within rounding of 0 the two versions may take the other side of the
+    # kink, which moves that row's g, so up to 1e-3 of g's elements may
+    # exceed the tolerance (measured on an H100: 5.4e-5 to 6.0e-5 at 0.5M
+    # to 1M rows).
+    bad_frac = 1e-3 if name == 'g' else 0.0
+    max_err = max(max_err, compare(torch, name, g, w, 1e-4, 1e-4, bad_frac))
+  return max_err, feat
+
+
 def phase_fused_trunk(torch, device):
   from nerfds_torch.kernels import fused_trunk
   print('== K1f fused_trunk_fwd vs plain version')
   spec, weights = nerf_ds_trunk(torch, device, seed=1)
-  names = ('sigma', 'normal', 'trunk_out', 'bottleneck', 'g')
   max_err, main, train = 0.0, None, {}
   with torch.no_grad():
     # The coarse and fine shapes of a 4096-ray render chunk, R=8192 fine,
     # those of a 512-ray training batch, and a ragged count (the last
     # 64-row tile is partial).
     for n in (4096 * 64, 4096 * 128, 8192 * 128, 512 * 64, 512 * 128, 4099):
-      gen = torch.Generator(device=device).manual_seed(n)
-      feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
-      got = fused_trunk.trunk_sigma_grad(feat, weights, spec)
-      want = fused_trunk.trunk_sigma_grad_reference(feat, weights, spec)
-      torch.cuda.synchronize()
-      print(f' N={n}')
-      for name, g, w in zip(names, got, want):
-        # Tolerance: float32 sums over 256 channels in another order than
-        # cuBLAS. g also follows the relu masks: where a pre-activation is
-        # within rounding of 0 the two versions may take the other side of
-        # the kink, which moves that row's g, so up to 1e-3 of g's elements
-        # may exceed the tolerance (measured on an H100: 5.4e-5 to 6.0e-5
-        # at 0.5M to 1M rows).
-        bad_frac = 1e-3 if name == 'g' else 0.0
-        max_err = max(max_err, compare(torch, name, g, w, 1e-4, 1e-4,
-                                       bad_frac))
-      del got, want
+      err, feat = check_trunk_fwd(torch, device, spec, weights, n)
+      max_err = max(max_err, err)
       ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad(
           feat, weights, spec), 3, warmup=1)
       plain_ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_reference(
@@ -1315,6 +1359,66 @@ def bf16_rows(torch, fused_trunk, names, feat, weights, spec, got, want):
   return max(e.max().item() for e in errs)
 
 
+def check_trunk_fwd_bf16(torch, device, spec, weights, n: int):
+  """K1f in bf16 against its plain bf16 version on N rows of random feat
+  (``bf16_rows``); returns (max abs error, feat, the plain outputs)."""
+  from nerfds_torch.kernels import fused_trunk
+  bf16 = torch.bfloat16
+  names = ('sigma', 'normal', 'trunk_out', 'bottleneck', 'g')
+  gen = torch.Generator(device=device).manual_seed(n + 5)
+  feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
+  got = fused_trunk.trunk_sigma_grad(feat, weights, spec, compute_dtype=bf16)
+  want = fused_trunk.trunk_sigma_grad_reference(feat, weights, spec,
+                                                compute_dtype=bf16)
+  torch.cuda.synchronize()
+  print(f' K1f bf16, N={n}')
+  err = bf16_rows(torch, fused_trunk, names, feat, weights, spec, got, want)
+  return err, feat, want
+
+
+def check_trunk_bwd_bf16(torch, device, spec, weights, n: int):
+  """K1b in bf16 against its plain bf16 version on N rows of random feat
+  and cotangents: two launches bit for bit, feat_bar's rows beyond
+  tolerance explained by ``check_bf16_rows``, and every output within
+  5e-3 of its norm. Returns (max abs error, feat, cotangents, the plain
+  outputs flattened)."""
+  from nerfds_torch.kernels import fused_trunk
+  bf16 = torch.bfloat16
+  gen = torch.Generator(device=device).manual_seed(n + 6)
+  feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
+  cots = tuple(torch.randn(n, c, generator=gen, device=device)
+               for c in (1, spec.norm_dim, spec.width, spec.width,
+                         spec.in_dim))
+  runs = [fused_trunk.trunk_sigma_grad_backward(
+      feat, weights, spec, cots, compute_dtype=bf16) for _ in range(2)]
+  want_x, want_w = fused_trunk.trunk_sigma_grad_backward_reference(
+      feat, weights, spec, cots, compute_dtype=bf16)
+  torch.cuda.synchronize()
+  got, again = ([x, *fused_trunk._flatten(w)] for x, w in runs)
+  want = [want_x, *fused_trunk._flatten(want_w)]
+  same = all(torch.equal(a, b) for a, b in zip(got, again))
+  print(f' K1b bf16, N={n}: repeat launch bit-identical: {same}')
+  if not same:
+    raise AssertionError('K1b bf16: two launches on the same inputs differ')
+  # Tolerance relative to each tensor's norm: rounding boundaries as for
+  # K1f, over every row's contribution to the grads (measured on an H100:
+  # at most 2.6e-3).
+  rels = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+          for g, w in zip(got, want)]
+  _, rows, flips = fused_trunk.check_bf16_rows(
+      feat, weights, spec, got[0], want[0], cots, name='feat_bar')
+  print(f'  feat_bar: {len(rows)} rows beyond atol 1e-3 + rtol 1e-2, '
+        f'each reproduced with {sites_used(flips)}')
+  print(f'  feat_bar and {len(got) - 1} grads: worst |got - want| / '
+        f'|want| {max(rels):.3e} (feat_bar {rels[0]:.3e})')
+  if max(rels) > 5e-3 or not all(bool(torch.isfinite(g).all())
+                                 for g in got):
+    raise AssertionError(f'K1b bf16 at N={n}: |got - want| / |want| '
+                         f'{max(rels):.2e} > 5e-3')
+  return max((g - w).abs().max().item() for g, w in zip(got, want)), \
+      feat, cots, want
+
+
 def phase_trunk_bf16(torch, device):
   """Phase 10(a): K1f and K1b in their bf16-operand mode against their
   bf16 plain versions, at the render shape (K1f), the training shapes and
@@ -1335,17 +1439,8 @@ def phase_trunk_bf16(torch, device):
              max_abs_err=0.0, library_ms=None)
   with torch.no_grad():
     for n in K1_BF16_FWD_SIZES:
-      gen = torch.Generator(device=device).manual_seed(n + 5)
-      feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
-      got = fused_trunk.trunk_sigma_grad(feat, weights, spec,
-                                         compute_dtype=bf16)
-      want = fused_trunk.trunk_sigma_grad_reference(feat, weights, spec,
-                                                    compute_dtype=bf16)
-      torch.cuda.synchronize()
-      print(f' K1f bf16, N={n}')
-      fwd['max_abs_err'] = max(fwd['max_abs_err'],
-                               bf16_rows(torch, fused_trunk, names, feat,
-                                         weights, spec, got, want))
+      err, feat, want = check_trunk_fwd_bf16(torch, device, spec, weights, n)
+      fwd['max_abs_err'] = max(fwd['max_abs_err'], err)
       if n == K1_BF16_FWD_SIZES[0]:
         # The float32 kernel against the same rule, which it must fail.
         f32 = fused_trunk.trunk_sigma_grad(feat, weights, spec)
@@ -1360,7 +1455,7 @@ def phase_trunk_bf16(torch, device):
           raise AssertionError('K1f: the f32 kernel meets the bf16 rule, so '
                                'the rule does not tell the modes apart')
         del f32
-      del got, want
+      del want
       ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad(
           feat, weights, spec, compute_dtype=bf16), 3, warmup=1)
       f32_ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad(
@@ -1383,32 +1478,9 @@ def phase_trunk_bf16(torch, device):
             fma_ceiling_ms=fma_ms).items()})
       del feat
     for n in K1B_SIZES:
-      gen = torch.Generator(device=device).manual_seed(n + 6)
-      feat = torch.rand(n, spec.in_dim, generator=gen, device=device) * 2 - 1
-      cots = tuple(torch.randn(n, c, generator=gen, device=device)
-                   for c in (1, spec.norm_dim, spec.width, spec.width,
-                             spec.in_dim))
-      runs = [fused_trunk.trunk_sigma_grad_backward(
-          feat, weights, spec, cots, compute_dtype=bf16) for _ in range(2)]
-      want_x, want_w = fused_trunk.trunk_sigma_grad_backward_reference(
-          feat, weights, spec, cots, compute_dtype=bf16)
-      torch.cuda.synchronize()
-      got, again = ([x, *fused_trunk._flatten(w)] for x, w in runs)
-      want = [want_x, *fused_trunk._flatten(want_w)]
-      same = all(torch.equal(a, b) for a, b in zip(got, again))
-      print(f' K1b bf16, N={n}: repeat launch bit-identical: {same}')
-      if not same:
-        raise AssertionError('K1b bf16: two launches on the same inputs '
-                             'differ')
-      # Tolerance relative to each tensor's norm: rounding boundaries as for
-      # K1f, over every row's contribution to the grads (measured on an
-      # H100: at most 2.6e-3).
-      rels = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
-              for g, w in zip(got, want)]
-      _, rows, flips = fused_trunk.check_bf16_rows(
-          feat, weights, spec, got[0], want[0], cots, name='feat_bar')
-      print(f'  feat_bar: {len(rows)} rows beyond atol 1e-3 + rtol 1e-2, '
-            f'each reproduced with {sites_used(flips)}')
+      err, feat, cots, want = check_trunk_bwd_bf16(torch, device, spec,
+                                                   weights, n)
+      bwd['max_abs_err'] = max(bwd['max_abs_err'], err)
       if n == TRAIN_BATCH * 128:
         # The float32 kernel against the same tolerance, which it must fail.
         x32, w32 = fused_trunk.trunk_sigma_grad_backward(feat, weights, spec,
@@ -1423,15 +1495,7 @@ def phase_trunk_bf16(torch, device):
                                'bf16 plain version, so the tolerance does '
                                'not tell the modes apart')
         del x32, w32
-      errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
-      bwd['max_abs_err'] = max(bwd['max_abs_err'], *errs)
-      print(f'  feat_bar and {len(got) - 1} grads: worst |got - want| / '
-            f'|want| {max(rels):.3e} (feat_bar {rels[0]:.3e})')
-      if max(rels) > 5e-3 or not all(bool(torch.isfinite(g).all())
-                                     for g in got):
-        raise AssertionError(f'K1b bf16 at N={n}: |got - want| / |want| '
-                             f'{max(rels):.2e} > 5e-3')
-      del runs, got, again, want, want_w
+      del want
       if n != 4099:
         ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
             feat, weights, spec, cots, compute_dtype=bf16), 3, warmup=1)
@@ -2853,6 +2917,368 @@ def phase_parallel(torch, device, trainer):
   return launches, out
 
 
+BENCH_BATCHES = (2048, 512)
+# bench.py's JSON keys, and the port's one more.
+BENCH_KEYS = ['metric', 'value', 'unit', 'vs_baseline', 'baseline', 'path']
+ABLATE_ARGS = ['--batch', '2048', '--warmup', '1', '--iters', '3']
+TOPK_ROWS = ('topk32', 'topk16', 'topk12', 'topk8')
+# Steps of the study CLIs' cut runs. convergence_run needs about 300 at
+# batch 512 before every foreground ray's median-weight sample carries
+# the weight that normal_fidelity selects (> 0.1): at 40 none did, at 120
+# steps of 2048 rays 44% (NVIDIA H100 80GB HBM3, 700 W).
+CONVERGENCE_STEPS = 300
+NORMALS_STEPS = 16
+STUDY_GRID = ((512, 'none'), (2048, 'sqrt'), (4096, 'linear'))
+# 4 steps at 4096 rays: at 3 the recipe's sharpening schedule decays over
+# one step and is NaN at step 0, in both packages.
+STUDY_RAY_BUDGET = 16_384
+SCENE_STEPS = 6
+CHILD_TIMEOUT_S = 600
+# bench_scaling's one rank against the bench at the same batch: the host
+# moves a step by up to 25% between calls (PERF.md §5).
+SCALING_TOLERANCE = 0.25
+
+
+def run_cli(main, argv):
+  """``main(argv)`` of a CLI in this process; returns its result and the
+  lines it printed, which are echoed indented."""
+  import contextlib
+  import io
+  buf = io.StringIO()
+  with contextlib.redirect_stdout(buf):
+    result = main(argv)
+  lines = buf.getvalue().splitlines()
+  for line in lines:
+    print(f'  | {line}')
+  return result, lines
+
+
+def run_child(argv, name):
+  """Runs ``argv`` from this script's directory in a session of its own;
+  returns its standard output's lines. Kills the whole session if it
+  outlasts ``CHILD_TIMEOUT_S``; raises if it exits with another code than
+  0."""
+  import os
+  import signal
+  proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True,
+                          start_new_session=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+  try:
+    stdout, stderr = proc.communicate(timeout=CHILD_TIMEOUT_S)
+  except subprocess.TimeoutExpired:
+    os.killpg(proc.pid, signal.SIGKILL)
+    proc.communicate()
+    raise AssertionError(f'{name}: still running after {CHILD_TIMEOUT_S} s')
+  finally:
+    if proc.poll() is None:
+      os.killpg(proc.pid, signal.SIGKILL)
+      proc.wait()
+  for line in stdout.splitlines():
+    print(f'  | {line}')
+  if proc.returncode != 0:
+    print(f'  {name} (rc {proc.returncode}), stderr:\n{stderr[-4000:]}')
+    raise AssertionError(f'{name} exited with {proc.returncode}')
+  return stdout.splitlines()
+
+
+def json_lines(lines):
+  return [json.loads(x) for x in lines if x.startswith('{')]
+
+
+def free_port() -> int:
+  import socket
+  with socket.socket() as s:
+    s.bind(('127.0.0.1', 0))
+    return s.getsockname()[1]
+
+
+def torchrun(ranks: int):
+  return [sys.executable, '-m', 'torch.distributed.run', '--nnodes', '1',
+          '--nproc_per_node', str(ranks), '--master_addr', '127.0.0.1',
+          '--master_port', str(free_port())]
+
+
+def check_finite(name, row, keys):
+  import math
+  if not all(math.isfinite(row[k]) for k in keys):
+    raise AssertionError(f'{name}: {row}')
+
+
+def check_trainer_launches(name, launches, steps):
+  """Training runs that take ∇σ for ``steps`` steps on the kernel path,
+  and evaluations: K1b twice a step, K1f and K2 at least as often (the
+  evaluations add theirs), K3 never."""
+  print(f'  {name} launches: {launches}')
+  if not (launches['fused_trunk_bwd'] == 2 * steps
+          and launches['fused_trunk_fwd'] >= 2 * steps
+          and launches['composite_fwd'] >= 2 * steps
+          and not launches['fused_mlp_fwd']):
+    raise AssertionError(f'{name}: launches {launches}, want K1b '
+                         f'{2 * steps}')
+
+
+def check_bench_kernels(torch, device):
+  """Phase 15 (a), first: each kernel of the bench's path against its plain
+  version at the shapes the bench gives it at batch ``BENCH_BATCHES[0]``
+  (K1f and K1b, f32 and the bf16 row's, on the coarse and fine levels'
+  rows; K2 on [rays, 64] and [rays, 128]); then one step of
+  ``bench.build`` at that batch on the kernel path against the plain path
+  from the same parameters, batch and draws, each Adam first moment (a
+  tenth of the gradient) within 1e-3 of its norm, as the card test holds
+  it at batch 512. Returns ({kernel: max abs error}, the worst moment's
+  |got - want| / |want|, and the plain step's own float32 floor: the same
+  on the plain path with the rays' origins moved one ulp)."""
+  from nerfds_torch import bench
+  batch = BENCH_BATCHES[0]
+  print(f' the kernels at the bench\'s shapes, batch {batch}')
+  spec, weights = nerf_ds_trunk(torch, device, seed=4)
+  gen = torch.Generator(device=device).manual_seed(1)
+  checks = {
+      'fused_trunk_fwd': lambda n: check_trunk_fwd(torch, device, spec,
+                                                   weights, n),
+      'fused_trunk_bwd': lambda n: check_trunk_bwd(torch, device, spec,
+                                                   weights, n),
+      'fused_trunk_fwd_bf16': lambda n: check_trunk_fwd_bf16(
+          torch, device, spec, weights, n),
+      'fused_trunk_bwd_bf16': lambda n: check_trunk_bwd_bf16(
+          torch, device, spec, weights, n)}
+  errs = dict.fromkeys([*checks, 'composite_fwd'], 0.0)
+  with torch.no_grad():
+    for samples in (64, 128):  # the coarse and the fine level
+      for name, check in checks.items():
+        errs[name] = max(errs[name], check(batch * samples)[0])
+      errs['composite_fwd'] = max(errs['composite_fwd'], check_composite(
+          torch, composite_inputs(torch, batch, samples, gen, device)))
+  moments = {}
+  for path in (*bench.PATHS, 'plain, origins moved one ulp'):
+    state, step_fn, data = bench.build(batch, path=path.split(',')[0],
+                                       device=device)
+    if path not in bench.PATHS:
+      origins = data['origins']
+      data['origins'] = torch.nextafter(
+          origins, torch.full_like(origins, float('inf')))
+    new, stats = step_fn(state, data,
+                         torch.Generator(device=device).manual_seed(7))
+    check_finite(f'bench step, {path}', stats['fine'], ('loss/total',))
+    moments[path] = new.opt_state.mu
+    del state, step_fn, data, new
+  floor = grad_rels(torch, moments.pop('plain, origins moved one ulp'),
+                    moments['plain'])
+  rels = grad_rels(torch, moments['kernel'], moments['plain'])
+  worst = max(rels, key=rels.get)
+  print(f'  bench step at batch {batch}, Adam first moments: kernel vs '
+        f'plain worst {rels[worst]:.3e} ({worst}); the plain step\'s float32 '
+        f'floor (origins moved one ulp) worst {max(floor.values()):.3e}')
+  if not rels[worst] < 1e-3:
+    raise AssertionError(f'bench step at batch {batch}: {worst} '
+                         f'{rels[worst]:.2e} of its norm from the plain path')
+  return errs, rels[worst], max(floor.values())
+
+
+def phase_clis(torch, device):
+  """Phase 15: the measuring and study CLIs on the card. (a) ``bench`` at
+  batch 2048 and 512: kernel path (K1f, K1b, K2 twice a step) with the
+  baseline (none of them), plain path (none); (b) ``bench_ablate`` on the
+  kernel path (the top-k rows refused, the bf16 row on K1 bf16) and the
+  plain path's full and topk16 rows; (c) ``bench_scaling``: one rank, two
+  gloo ranks sharing the card, NCCL over the cards where there are two or
+  more; (d) ``convergence_run``, ``normals_ablation``,
+  ``batch_scaling_study`` and ``run_scenes`` (an exported capture and a
+  missing directory) at cut sizes. (a) starts with
+  ``check_bench_kernels``."""
+  import csv
+  import tempfile
+  from pathlib import Path
+  import numpy as np
+  from nerfds_torch import (batch_scaling_study, bench, bench_ablate,
+                            convergence_run, export_synthetic, kernels,
+                            normals_ablation)
+  phase_start = time.perf_counter()
+  print('== phase 15: the measuring and study CLIs')
+  launches, out = {}, {'bench': {}}
+  out['bench_shapes'] = dict(zip(
+      ('max_abs_err', 'moment_rel_worst', 'moment_floor_worst'),
+      check_bench_kernels(torch, device)))
+  walls = out['wall_s'] = {'bench_shapes': time.perf_counter() - phase_start}
+
+  # (a) The bench, each path at each batch; 512 with --quick.
+  for batch in BENCH_BATCHES:
+    for path, extra in (('kernel', []), ('plain', ['--no-baseline'])):
+      argv = ['--batch', str(batch), '--path', path, *extra]
+      if batch != BENCH_BATCHES[0]:
+        argv.append('--quick')
+      kernels.reset_launch_counts()
+      (result, runs), lines = run_cli(bench.main, argv)
+      launches[f'bench_{path}_{batch}'] = dict(kernels.launch_counts)
+      if (len(lines) != 1 or json.loads(lines[0]) != result
+          or list(result) != BENCH_KEYS or result['unit'] != 'rays/s/chip'
+          or result['metric'] != bench.METRIC):
+        raise AssertionError(f'bench {argv}: printed {lines}')
+      for name, run in runs.items():
+        kind = path if name == 'path' else 'baseline'
+        per_step = dict.fromkeys(TRUNK_KERNELS, 2) if kind == 'kernel' else {}
+        check_launches(f'bench {kind}, batch {batch}', run['launches'],
+                       **{k: n * run['steps'] for k, n in per_step.items()})
+        chains = [1e3 * s for s in run['chains']]
+        out['bench'][f'{kind}_{batch}'] = dict(
+            rays_per_s=batch / run['sec'], step_ms=1e3 * run['sec'],
+            chains_ms=chains, spread=(max(chains) - min(chains))
+            / (1e3 * run['sec']), steps=run['steps'],
+            peak_gib=run['peak_gib'])
+      out['bench'][f'{path}_{batch}']['vs_baseline'] = result['vs_baseline']
+  for key, r in out['bench'].items():
+    print(f'  bench {key}: {r["rays_per_s"]:.1f} rays/s, median chain '
+          f'{r["step_ms"]:.2f} ms a step (chains {", ".join(f"{c:.2f}" for c in r["chains_ms"])}'
+          f'; spread {r["spread"]:.3f} of the median), peak '
+          f'{r["peak_gib"]:.2f} GiB')
+
+  walls['bench'] = time.perf_counter() - phase_start - walls['bench_shapes']
+
+  # (b) bench_ablate: the kernel path's table, then the plain path's top-k.
+  start = time.perf_counter()
+  kernels.reset_launch_counts()
+  (results, runs), lines = run_cli(bench_ablate.main, ABLATE_ARGS)
+  launches['ablate_kernel'] = dict(kernels.launch_counts)
+  rows = {r['ablation']: r for r in json_lines(lines)}
+  if list(rows) != list(bench_ablate.ABLATIONS):
+    raise AssertionError(f'bench_ablate rows {list(rows)}')
+  refused = {name for name, r in rows.items() if 'error' in r}
+  if (refused != set(TOPK_ROWS) or not all(
+      'norm_grad_topk is active only' in rows[n]['error'] for n in refused)):
+    raise AssertionError(f'bench_ablate errors: '
+                         f'{ {n: rows[n]["error"] for n in refused} }')
+  steps = runs['full']['steps']
+  check_launches('bench_ablate full', runs['full']['launches'],
+                 **dict.fromkeys(TRUNK_KERNELS, 2 * steps))
+  check_launches('bench_ablate bf16', runs['bf16']['launches'],
+                 fused_trunk_fwd_bf16=2 * steps,
+                 fused_trunk_bwd_bf16=2 * steps, composite_fwd=2 * steps)
+  out['ablate_kernel'] = {
+      name: dict(ms=results[name], launches_per_step={
+          k: n / steps for k, n in run['launches'].items() if n},
+          peak_gib=run['peak_gib']) for name, run in runs.items()}
+  kernels.reset_launch_counts()
+  (results, runs), lines = run_cli(
+      bench_ablate.main, ABLATE_ARGS + ['--path', 'plain', '--only', 'full',
+                                        'topk16'])
+  launches['ablate_plain'] = dict(kernels.launch_counts)
+  check_launches('bench_ablate --path plain', launches['ablate_plain'])
+  if sorted(results) != ['full', 'topk16']:
+    raise AssertionError(f'bench_ablate --path plain: {lines}')
+  out['ablate_plain'] = {name: dict(ms=results[name],
+                                    peak_gib=run['peak_gib'])
+                         for name, run in runs.items()}
+
+  walls['bench_ablate'] = time.perf_counter() - start
+
+  # (c) bench_scaling in child processes under torchrun.
+  scaling = [sys.executable, '-m', 'nerfds_torch.bench_scaling']
+  batch = str(BENCH_BATCHES[0])
+  cases = [('one_rank', 1, ['--per_chip_batch', batch, '--warmup', '2',
+                            '--iters', '8']),
+           ('two_gloo_ranks_one_card', 2,
+            ['--backend', 'gloo', '--per_chip_batch', '512', '--warmup', '1',
+             '--iters', '3'])]
+  cards = torch.cuda.device_count()
+  if cards >= 2:
+    cases.append(('nccl_cards', min(cards, 4),
+                  ['--per_chip_batch', batch, '--warmup', '2', '--iters',
+                   '8']))
+  else:
+    out['scaling_nccl_cards'] = 'not run: one card'
+  for name, ranks, argv in cases:
+    start = time.perf_counter()
+    rows = json_lines(run_child(torchrun(ranks) + scaling[1:] + argv, name))
+    want = [n for n in (1, 2, 4) if n <= ranks]
+    if [r['devices'] for r in rows[:-1]] != want or (
+        rows[-1]['metric'] != 'weak_scaling_efficiency'):
+      raise AssertionError(f'bench_scaling {name}: {rows}')
+    out[f'scaling_{name}'] = rows
+    walls[f'bench_scaling_{name}'] = time.perf_counter() - start
+  alone = out['scaling_one_rank'][0]['rays_per_sec_per_chip']
+  ref = out['bench'][f'kernel_{batch}']['rays_per_s']
+  print(f'  bench_scaling, one rank at {batch} rays: {alone:.1f} rays/s '
+        f'against the bench\'s {ref:.1f} ({alone / ref - 1:+.3f})')
+  if not abs(alone / ref - 1) <= SCALING_TOLERANCE:
+    raise AssertionError(f'bench_scaling one rank {alone} vs bench {ref}')
+
+  # (d) The study CLIs at cut sizes, kernel path.
+  with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    runs = {}
+    start = time.perf_counter()
+    kernels.reset_launch_counts()
+    rows, _ = run_cli(convergence_run.main, [
+        '--steps', str(CONVERGENCE_STEPS), '--eval_every',
+        str(CONVERGENCE_STEPS // 2), '--frames', '4', '--image_size', '32',
+        '--batch', '512', '--out', str(tmp / 'convergence.jsonl')])
+    runs['convergence_run'] = rows, CONVERGENCE_STEPS
+    for r in rows[1:3]:
+      check_finite('convergence_run', r, ('train_psnr', 'val_psnr',
+                                          'val_ms_ssim'))
+    if not rows[3]['normal_pixels'] > 0:
+      raise AssertionError(f'convergence_run: no pixel to score: {rows[3]}')
+    check_finite('convergence_run', rows[3], ('normal_cosine_train_views',))
+    launches['convergence_run'] = dict(kernels.launch_counts)
+    kernels.reset_launch_counts()
+    (rows, summary), _ = run_cli(normals_ablation.main, [
+        '--steps', str(NORMALS_STEPS), '--batch', '512', '--frames', '4',
+        '--image_size', '32', '--cases', 'full,no_normals', '--out',
+        str(tmp / 'normals')])
+    # 'no_normals' takes no ∇σ: K1 runs in 'full' alone.
+    runs['normals_ablation'] = rows, NORMALS_STEPS
+    for r in rows:
+      check_finite('normals_ablation', r, ('val_psnr', 'val_masked_psnr'))
+    launches['normals_ablation'] = dict(kernels.launch_counts)
+    kernels.reset_launch_counts()
+    (rows, summary), _ = run_cli(batch_scaling_study.main, [
+        '--ray_budget', str(STUDY_RAY_BUDGET), '--seeds', '0', '--grid',
+        ','.join(f'{b}:{r}' for b, r in STUDY_GRID), '--out',
+        str(tmp / 'batch_scaling.json')])
+    # Microbatches of 1024 rays from a batch of 4096: K1b once each a level.
+    study_steps = sum(STUDY_RAY_BUDGET // b * max(b // 1024, 1)
+                      if b >= 4096 else STUDY_RAY_BUDGET // b
+                      for b, _ in STUDY_GRID)
+    runs['batch_scaling_study'] = rows, study_steps
+    for r in rows:
+      check_finite('batch_scaling_study', r, ('val_psnr', 'rays_per_sec'))
+    launches['batch_scaling_study'] = dict(kernels.launch_counts)
+    for name, (rows, n) in runs.items():
+      check_trainer_launches(name, launches[name], n)
+    out['studies'] = {name: rows for name, (rows, _) in runs.items()}
+    walls['studies'] = time.perf_counter() - start
+
+    # run_scenes: a capture exported on the card and a missing directory,
+    # each scene trained by a child train CLI.
+    data_root = tmp / 'scenes'
+    export_synthetic.main([
+        '--out_dir', str(data_root / 'sphere_novel_view'), '--frames', '4',
+        '--image_size', '32', '--gt_samples', '64', '--camera_path_frames',
+        '2'])
+    exp_root = tmp / 'scene_runs'
+    start = time.perf_counter()
+    run_child([sys.executable, '-m', 'nerfds_torch.run_scenes',
+               '--data_root', str(data_root), '--exp_root', str(exp_root),
+               '--scenes', 'sphere', 'missing', '--max_steps',
+               str(SCENE_STEPS), '--batch_size', '512'], 'run_scenes')
+    with open(exp_root / 'summary.csv') as f:
+      table = list(csv.reader(f))
+    psnr = table[0].index('psnr')
+    model_cfg = json.loads((exp_root / 'sphere' / 'model_config.json')
+                           .read_text())
+    if ([r[0] for r in table[1:]] != ['sphere', 'missing']
+        or not np.isfinite(float(table[1][psnr]))
+        or any(table[2][1:])
+        or (model_cfg['sigma_gradient_mode'],
+            model_cfg['use_pallas_compositing']) != ('fused', True)):
+      raise AssertionError(f'run_scenes summary {table}')
+    out['run_scenes'] = table
+    walls['run_scenes'] = time.perf_counter() - start
+  walls['phase'] = time.perf_counter() - phase_start
+  print(f'  phase 15 wall times: {json.dumps(walls)}')
+  return launches, out
+
 def check_launches(name, launches, **want):
   """``launches`` must hold the counts in ``want``, and 0 for every other
   kernel."""
@@ -2986,6 +3412,12 @@ def main() -> int:
   for r in results:
     r['launches_parallel'] = {case: counts[r['name']]
                               for case, counts in parallel_launches.items()}
+  bench_launches, clis = phase_clis(torch, device)
+  for r in results:
+    r['launches_bench'] = {part: counts[r['name']]
+                           for part, counts in bench_launches.items()}
+    r['max_abs_err'] = max(r['max_abs_err'], clis['bench_shapes'][
+        'max_abs_err'].get(r['name'], 0.0))
   for r in results:
     r['launches_speed_modes'] = {mode: counts[r['name']]
                                  for mode, counts in speed_launches.items()}
@@ -3004,6 +3436,7 @@ def main() -> int:
   print('radiance: ' + json.dumps(radiance))
   print('variants: ' + json.dumps(variants))
   print('parallel: ' + json.dumps(parallel))
+  print('bench: ' + json.dumps(clis))
   print(f'card: {card_line()}')
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

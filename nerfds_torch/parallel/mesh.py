@@ -43,11 +43,18 @@ class DataMesh:
   group: Optional[Any] = None
 
 
-def create_mesh(device=None) -> DataMesh:
-  """The 1-D data mesh over every process of the job. ``device``: this
-  rank's device, ``cuda:{LOCAL_RANK}`` unless the caller passes one."""
+def create_mesh(device=None, group=None) -> DataMesh:
+  """The 1-D data mesh over every process of the job, or over the ranks of
+  ``group`` (a ``torch.distributed.new_group``, called by this process
+  only if it belongs to it): every collective of the mesh then runs on
+  that group alone, so ranks outside it may wait elsewhere. ``device``:
+  this rank's device, ``cuda:{LOCAL_RANK}`` unless the caller passes one."""
   if device is None:
     device = f'cuda:{distributed.local_rank()}'
+  if group is not None:
+    return DataMesh(rank=dist.get_rank(group),
+                    world_size=dist.get_world_size(group),
+                    device=resolve_device(device), group=group)
   world = distributed.process_count()
   return DataMesh(rank=distributed.process_index(), world_size=world,
                   device=resolve_device(device),
@@ -122,12 +129,13 @@ def all_reduce_max(tensors: Dict[str, torch.Tensor], mesh: Optional[DataMesh]
 
 def broadcast(tensors: Dict[str, torch.Tensor], mesh: Optional[DataMesh],
               src: int = 0) -> Dict[str, torch.Tensor]:
-  """Rank ``src``'s ``tensors`` (one dtype) on every rank: one collective
-  on a flattened buffer, split back into views."""
+  """The mesh's rank ``src``'s ``tensors`` (one dtype) on every rank: one
+  collective on a flattened buffer, split back into views."""
   if mesh is None or mesh.world_size == 1 or not tensors:
     return tensors
   flat = _flat(tensors)
-  dist.broadcast(flat, src=src, group=mesh.group)
+  dist.broadcast(flat, src=dist.get_global_rank(mesh.group, src),
+                 group=mesh.group)
   return _unflat(flat, tensors)
 
 

@@ -622,3 +622,24 @@ def test_host_ray_iterator_on_card(cuda):
   finally:
     it.close()
   assert not it._thread.is_alive()
+
+
+@pytest.mark.cuda
+def test_bench_kernel_path_matches_plain_on_card(cuda):
+  """One step of ``nerfds_torch.bench.build`` at batch 512 on the kernel
+  path (K1f, K1b and K2 twice each) against the plain path, from the same
+  parameters, batch and draws: Adam's first moment (a tenth of the
+  gradient) within 1e-3 of each tensor's norm."""
+  from nerfds_torch import bench
+  names = ('fused_trunk_fwd', 'fused_trunk_bwd', 'composite_fwd')
+  moments = {}
+  for path in bench.PATHS:
+    state, step_fn, batch = bench.build(512, path=path, device=cuda)
+    before = {k: kernels.launch_counts[k] for k in names}
+    new, stats = step_fn(state, batch,
+                         torch.Generator(device=cuda).manual_seed(7))
+    assert np.isfinite(float(stats['fine']['loss/total']))
+    want = 2 if path == 'kernel' else 0
+    assert all(kernels.launch_counts[k] == before[k] + want for k in names)
+    moments[path] = {k: v.cpu() for k, v in new.opt_state.mu.items()}
+  assert worst_rel(moments['kernel'], moments['plain']) < 1e-3

@@ -61,6 +61,9 @@ CONFIGS = {
     'remat_sigma_dots': ('nerf_ds', dict(remat_sigma=True,
                                          remat_policy='dots')),
     'remat_feat': ('nerf_ds', dict(remat_feat=True)),
+    # The bench's reference execution pattern (bench.py:27-32).
+    'naive_concat': ('nerf_ds', dict(sigma_gradient_mode='naive',
+                                     concat_dense_inputs=True)),
 }
 ATOL, RTOL = 1e-5, 1e-4
 TOLERANCE = {
@@ -271,6 +274,7 @@ RENDERS = [
     ('norm_group', 'naive', 'naive'),
     ('norm_batch', 'vmap', 'vmap'),
     ('norm_batch', 'vjp', 'vjp'),
+    ('naive_concat', 'naive', 'naive'),
 ]
 
 
@@ -376,10 +380,12 @@ def toy_batch(n=8, seed=0):
 
 @functools.lru_cache(maxsize=None)
 def jax_step(name):
-  """JAX's state and stats after one ``make_train_step`` step ('vmap') of
-  ``name`` from its init on ``toy_batch()``."""
+  """JAX's state and stats after one ``make_train_step`` step of ``name``
+  from its init on ``toy_batch()``: in the configuration's own ∇σ mode
+  where it names one, else 'vmap'."""
+  mode = CONFIGS[name][1].get('sigma_gradient_mode', 'vmap')
   step_fn = jstep.make_train_step(
-      jax_model(name, sigma_gradient_mode='vmap'), toy_train_cfg(jconfig),
+      jax_model(name, sigma_gradient_mode=mode), toy_train_cfg(jconfig),
       donate=False)
   return jax.device_get(step_fn(
       jstep.TrainState.create(jax_init(name)),
@@ -401,6 +407,7 @@ STEPS = {
     'remat_sigma_dots': ('vmap', 'plain'),
     'remat_sigma_nothing': ('naive', 'plain'),
     'remat_feat': ('fused', 'plain'),
+    'naive_concat': ('naive', 'naive_concat'),
 }
 
 
