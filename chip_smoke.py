@@ -4,7 +4,10 @@
   python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi``), fails without CUDA, and builds the
-   hand-written kernels from ``nerfds_torch/kernels/csrc``.
+   hand-written kernels from ``nerfds_torch/kernels/csrc``; reads the
+   library's SASS (``cuobjdump``) and fails unless each bf16 trunk kernel's
+   products run on the tensor cores (HMMA or HGMMA instructions, counted,
+   and no FFMA).
 2. K2, compositing forward: kernel against its plain PyTorch version, at
    the render and the training shapes, S = 12 and a ragged R; each timed
    shape by its device time as a share of its bound.
@@ -41,15 +44,20 @@
    frame with ``metrics_pipeline`` against the eval CLI's PSNR; times the
    PNG decode of an exported frame and of a Paeth-filtered panel.
 10. The speed and precision modes at full width. (a) K1f and K1b in their
-   bf16-operand mode against their bf16 plain versions (K1f at the
-   training batch's rows, a render chunk's and a ragged N; K1b at the
-   training shapes and a ragged N, two launches giving the same bits):
-   every row beyond the bf16 tolerance reproduced by the plain version in
-   float64 with the roundings or masks moved that lie at a boundary
-   (``fused_trunk.check_bf16_rows``), and the float32 kernels shown to
-   fail that rule; each timed beside the float32 kernel, with the bf16
-   tensor-core bound and the f32-FMA ceiling. (b) ``nerf_ds_fast`` (∇σ
-   top-k) for 24 steps through ``Trainer.train`` (K2 twice a step, K1
+   bf16-operand mode (on the tensor cores) against their bf16 plain
+   versions (K1f at the training batch's rows, a render chunk's and a
+   ragged N; K1b at the training shapes and a ragged N, two launches
+   giving the same bits): every row beyond the bf16 tolerance reproduced
+   by the plain version in float64 with the roundings or masks moved that
+   lie at a boundary (``fused_trunk.check_bf16_rows``), and K1b's outputs
+   within 5e-3 of each norm; the float32 kernels shown to fail that rule;
+   the plain version's products shown to be float32 sums in k order (what
+   the kernels' resum reproduces at their rounding decisions);
+   each timed by its device time beside the float32 kernel, with the bf16
+   tensor-core bound, the f32-FMA ceiling and K1b's scratch floor (its
+   scratch written and read once).
+   (b) ``nerf_ds_fast`` (∇σ top-k) for 24 steps through
+   ``Trainer.train`` (K2 twice a step, K1
    never: top-k acts in 'vmap' mode), its gradients against the plain
    path's, then the train CLI with ``--preset nerf_ds_fast``. (c)
    ``compute_dtype='bfloat16'`` in the trunk, rgb and mask zones with
@@ -73,8 +81,9 @@
    with ``--preset hypernerf`` and config[2]'s overrides, 6 steps, its
    ``summaries/metrics.jsonl`` holding the elastic loss.
 12. The radiance variants: K1f and K1b at a σ-only head and without a
-   bottleneck; (a) ∇σ as the colour's normal, (b) hyper-c with the
-   'canonical' target, (c) the 'direct' target with every rgb condition,
+   bottleneck, in float32 and (by phase 10(a)'s rules) in bf16; (a) ∇σ
+   as the colour's normal, (b) hyper-c with the 'canonical' target, (c)
+   the 'direct' target with every rgb condition,
    12 steps each against the plain path; the ∇σ modes; a train CLI.
 13. The model variants outside ``nerf_ds()``, 12 steps each against their
    plain twins ('vmap', plain compositing) within max(1e-3, twice the
@@ -105,7 +114,8 @@
 15. The measuring and study CLIs, in this process or as child processes:
    (a) first each kernel of the bench's path against its plain version at
    the bench's shapes at batch 2048 (K1f and K1b, float32 and bf16, on
-   131,072 and 262,144 rows; K2 on [2048, 64] and [2048, 128]), and one
+   131,072 and 262,144 rows, each timed; K2 on [2048, 64] and [2048,
+   128]), and one
    step of ``bench.build(2048)`` on the kernel path against the plain
    path, every Adam first moment within 1e-3 of its norm; then
    ``python -m nerfds_torch.bench`` at batch 2048 (5 chains of 8
@@ -149,6 +159,9 @@ runs in full float32 like the kernels. Exits nonzero at the first failure.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -191,6 +204,21 @@ CAPTURE_SIZE = 480
 CAPTURE_GT_SAMPLES = 192
 
 
+# The bf16-operand trunk kernels whose products run on the tensor cores
+# (csrc/fused_trunk_fwd_bf16.cu, csrc/fused_trunk_bwd_bf16.cu), by their
+# __global__ functions, and the kernel name they count their launches under.
+BF16_TC_KERNELS = {'fused_trunk_fwd_bf16_kernel': 'fused_trunk_fwd_bf16',
+                   'trunk_bwd_bf16_sweep_kernel': 'fused_trunk_bwd_bf16',
+                   'trunk_wgrad_bf16_kernel': 'fused_trunk_bwd_bf16'}
+BF16_DESIGN = ('tensor cores: mma.sync m16n8k16 bf16 with f32 sums, 64-row '
+               'tiles, sums near a rounding or a mask summed again in k order '
+               '(csrc/trunk_mma.cuh)')
+# What every trunk kernel's name holds (the launches of the float32 and the
+# bf16 entries, their norm and reduction kernels included), and none of the
+# wrappers' PyTorch operations: device_ms's match for a trunk kernel's time.
+TRUNK_KERNEL_MATCH = 'trunk_'
+
+
 def card_line() -> str:
   try:
     out = subprocess.run(
@@ -228,7 +256,9 @@ def device_ms(torch, fn, n: int = 20, match: str = '', flush=None) -> float:
   fn()
   torch.cuda.synchronize()
   # The profiler may record none of a window's kernels (seen once for K2
-  # at R = 512 after an L2 flush); such a window is profiled again.
+  # at R = 512 after an L2 flush), or miss one launch of n (seen for K1f at
+  # n = 3): a window where a kernel's launches are not a multiple of n is
+  # profiled again.
   for _ in range(3):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -237,12 +267,13 @@ def device_ms(torch, fn, n: int = 20, match: str = '', flush=None) -> float:
           flush.zero_()
         fn()
       torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and match in e.key)
-    if total > 0:
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and match in e.key]
+    total = sum(e.self_device_time_total for e in events)
+    if total > 0 and all(e.count % n == 0 for e in events):
       return total / 1e3 / n
-    print(f'  (the profiler recorded no device time matching {match!r}; '
-          'profiling again)')
+    print(f'  (the profiler recorded {[e.count for e in events]} launches '
+          f'matching {match!r} in {n} calls; profiling again)')
   # Then CUDA events around each call, which also hold the wrapper's
   # launch latency: an upper bound, said so in the output.
   print(f'  (no profile of {match!r}: timed by CUDA events around each call)')
@@ -256,6 +287,59 @@ def device_ms(torch, fn, n: int = 20, match: str = '', flush=None) -> float:
     end.record()
   torch.cuda.synchronize()
   return sum(start.elapsed_time(end) for start, end in pairs) / n
+
+
+def sass_counts():
+  """{__global__ function of BF16_TC_KERNELS: {'mma': its HMMA and HGMMA
+  instructions, 'ffma': its FFMA, 'fmul': its FMUL instructions}} in the
+  built library's SASS, read with the toolkit's ``cuobjdump --dump-sass``.
+  Raises without cuobjdump beside nvcc or on the PATH."""
+  from nerfds_torch.kernels import build
+  tool = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
+  tool = tool if os.path.exists(tool) else shutil.which('cuobjdump')
+  if tool is None:
+    raise AssertionError('cuobjdump not found: the bf16 kernels\' tensor '
+                         'cores cannot be shown')
+  sass = subprocess.run([tool, '--dump-sass', str(build.library_path())],
+                        capture_output=True, text=True, timeout=300,
+                        check=True).stdout
+  counts, name = {}, None
+  for line in sass.splitlines():
+    if 'Function :' in line:
+      function = line.split('Function :')[1].strip()
+      # The name mangled (length, name) or demangled (name, arguments).
+      name = next((k for k in BF16_TC_KERNELS
+                   if f'{len(k)}{k}' in function or f'{k}(' in function),
+                  None)
+      if name:
+        counts[name] = {'mma': 0, 'ffma': 0, 'fmul': 0}
+    elif name and re.search(r'\bHG?MMA\.', line):
+      counts[name]['mma'] += 1
+    elif name and re.search(r'\bFFMA\b', line):
+      counts[name]['ffma'] += 1
+    elif name and re.search(r'\bFMUL\b', line):
+      counts[name]['fmul'] += 1
+  return counts
+
+
+def check_tensor_cores():
+  """The bf16 trunk kernels' layer products run on the tensor cores:
+  each of their __global__ functions holds HMMA (or HGMMA) instructions
+  and no FFMA. Their FMUL belong to resum (csrc/trunk_mma.cuh), which sums
+  again in k order, on the CUDA cores, the few sums that lie near a bf16
+  rounding or a relu mask (a multiply and an add apart, as an FFMA would
+  round them). Returns sass_counts()."""
+  counts = sass_counts()
+  for k in BF16_TC_KERNELS:
+    c = counts.get(k)
+    print(f'  SASS of {k}: {c["mma"] if c else "no function"} HMMA/HGMMA, '
+          f'{c["ffma"] if c else "-"} FFMA, {c["fmul"] if c else "-"} FMUL')
+    if not c or not c['mma']:
+      raise AssertionError(f'{k}: no tensor-core instruction in its SASS')
+    if c['ffma']:
+      raise AssertionError(f'{k}: {c["ffma"]} FFMA in its SASS: products '
+                           'on the CUDA cores beyond resum\'s')
+  return counts
 
 
 def compare(torch, name, got, want, atol, rtol, max_bad_frac=0.0):
@@ -731,9 +815,11 @@ def phase_fused_trunk_bwd(torch, device):
             torch, lambda: fused_trunk.trunk_sigma_grad_backward_reference(
                 feat, weights, spec, cots), 3, warmup=1)
         bound_ms, bound_by, tflop, mbytes = trunk_bwd_bound(spec, weights, n)
+        floor_ms = scratch_floor_ms(n, spec.depth)
         print(f'  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
               f'{bound_ms:.3f} ms ({tflop:.4f} TFLOP, {mbytes:.1f} MB): '
-              f'{bound_ms / ms:.1%} of the bound')
+              f'{bound_ms / ms:.1%} of the bound; scratch floor '
+              f'{floor_ms:.3f} ms')
         parts = profile_device(
             torch, lambda: fused_trunk.trunk_sigma_grad_backward(
                 feat, weights, spec, cots), f'K1b at N={n}', top=4)
@@ -743,10 +829,11 @@ def phase_fused_trunk_bwd(torch, device):
               f'{split["reduce_ms"]:.3f} ms')
         if n == TRAIN_BATCH * 128:  # the fine level's rows
           main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, **split)
+                      bound_by=bound_by, scratch_floor_ms=floor_ms, **split)
         else:
           train.update({f'{k}_n{n}': v for k, v in dict(
-              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, **split).items()})
+              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              scratch_floor_ms=floor_ms, **split).items()})
       del feat, cots
   return dict(name='fused_trunk_bwd', route='cuda',
               source='nerfds_torch/kernels/csrc/fused_trunk_bwd.cu',
@@ -757,9 +844,10 @@ def phase_fused_trunk_bwd(torch, device):
 def bwd_kernel_split(parts):
   """K1b's device time a call by its kernels: the sweep, the weight-grad
   products and the reduction of their partials."""
-  pick = lambda key: sum(ms for name, ms in parts.items() if key in name)
-  return dict(sweep_ms=pick('trunk_bwd_sweep'), wgrad_ms=pick('wgrad_kernel'),
-              reduce_ms=pick('wgrad_reduce'))
+  pick = lambda test: sum(ms for name, ms in parts.items() if test(name))
+  return dict(sweep_ms=pick(lambda k: 'sweep_kernel' in k),
+              wgrad_ms=pick(lambda k: 'wgrad' in k and 'reduce' not in k),
+              reduce_ms=pick(lambda k: 'wgrad' in k and 'reduce' in k))
 
 
 def pinhole_rays(size: int, num_embeds: int):
@@ -1317,8 +1405,8 @@ def trunk_bf16_bounds(spec, weights, n: int, flops: int, in_out_floats: int):
   """(bound ms, what bounds it, f32-FMA ceiling ms) of a trunk kernel in
   bf16 on N rows: its operations at the bf16 tensor-core peak or its bytes
   (float32 inputs and outputs, bf16 weights) at the memory rate; and the
-  same operations at the float32 CUDA-core peak, the ceiling of this
-  engine, which widens each operand to float32 for an FMA."""
+  same operations at the float32 CUDA-core peak, the best an engine of
+  float32 FMAs could do (PR 7's widened each operand for one)."""
   n_weights = sum(w.numel() for w, _ in weights.layers) + \
       weights.head[0].numel() + weights.bottleneck[0].numel()
   n_biases = sum(b.numel() for _, b in weights.layers) + \
@@ -1328,6 +1416,25 @@ def trunk_bf16_bounds(spec, weights, n: int, flops: int, in_out_floats: int):
   return (1e3 * max(t_ops, t_bytes),
           'operations' if t_ops >= t_bytes else 'bytes',
           1e3 * flops / PEAK_F32_FLOP_PER_S)
+
+
+def bf16_fwd_bound(spec, weights, n: int):
+  """trunk_bf16_bounds of K1f in bf16 on N rows: feat in, the five
+  outputs out."""
+  return trunk_bf16_bounds(
+      spec, weights, n, n * trunk_flops(spec),
+      n * (2 * spec.in_dim + 1 + spec.norm_dim + 2 * spec.width))
+
+
+def bf16_bwd_bound(spec, weights, n: int):
+  """trunk_bf16_bounds of K1b in bf16 on N rows: feat and the cotangents
+  in, feat_bar and every grad out."""
+  n_weights = sum(w.numel() + b.numel() for w, b in weights.layers) + \
+      sum(t.numel() for t in (*weights.head, *weights.bottleneck))
+  return trunk_bf16_bounds(
+      spec, weights, n, n * trunk_bwd_flops(spec),
+      n * (2 * spec.in_dim + 1 + spec.norm_dim + 2 * spec.width
+           + spec.in_dim) + n_weights)
 
 
 def sites_used(flips) -> str:
@@ -1343,7 +1450,14 @@ def bf16_rows(torch, fused_trunk, names, feat, weights, spec, got, want):
   """K1f's outputs in bf16 against the plain bf16 version: finite, of the
   plain version's shapes, and every row beyond atol 1e-3 + rtol 1e-2 in
   one of them explained by fused_trunk.check_bf16_rows (which raises
-  otherwise). Returns the largest |got - want|."""
+  otherwise); a head without a normal has none on either side. Returns
+  the largest |got - want|."""
+  full_got, full_want = got, want
+  if [g is None for g in got] != [w is None for w in want]:
+    raise AssertionError('the kernel and the plain version return different '
+                         'outputs')
+  names, got, want = zip(*((name, g, w) for name, g, w in zip(names, got, want)
+                           if w is not None))
   for name, g, w in zip(names, got, want):
     if tuple(g.shape) != tuple(w.shape) or not bool(torch.isfinite(g).all()):
       raise AssertionError(f'{name}: shape {tuple(g.shape)} against '
@@ -1353,9 +1467,11 @@ def bf16_rows(torch, fused_trunk, names, feat, weights, spec, got, want):
       f'{name} max_abs_err {e.max().item():.3e} beyond '
       f'{(e > 1e-3 + 1e-2 * w.abs()).float().mean().item():.2e}'
       for name, e, w in zip(names, errs, want)))
-  _, rows, flips = fused_trunk.check_bf16_rows(feat, weights, spec, got, want)
+  start = time.perf_counter()
+  _, rows, flips = fused_trunk.check_bf16_rows(feat, weights, spec, full_got,
+                                               full_want)
   print(f'  {len(rows)} rows beyond, each reproduced with '
-        f'{sites_used(flips)}')
+        f'{sites_used(flips)} ({time.perf_counter() - start:.1f} s)')
   return max(e.max().item() for e in errs)
 
 
@@ -1400,9 +1516,10 @@ def check_trunk_bwd_bf16(torch, device, spec, weights, n: int):
   print(f' K1b bf16, N={n}: repeat launch bit-identical: {same}')
   if not same:
     raise AssertionError('K1b bf16: two launches on the same inputs differ')
-  # Tolerance relative to each tensor's norm: rounding boundaries as for
-  # K1f, over every row's contribution to the grads (measured on an H100:
-  # at most 2.6e-3).
+  # Tolerance relative to each tensor's norm, over every row's contribution
+  # to the grads: the kernel's roundings and masks fall as the plain
+  # version's in-order f32 sums make them fall (resum), so what is left is
+  # the order of the f32 sums (measured on an H100: at most 1.5e-6).
   rels = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
           for g, w in zip(got, want)]
   _, rows, flips = fused_trunk.check_bf16_rows(
@@ -1419,6 +1536,43 @@ def check_trunk_bwd_bf16(torch, device, spec, weights, n: int):
       feat, cots, want
 
 
+def scratch_floor_ms(n: int, depth: int, compute_dtype=None) -> float:
+  """K1b's design floor on N rows: its device-memory scratch written once
+  and read back once at the memory rate (not in its bound, which counts
+  the work's inputs and outputs: a design may recompute instead)."""
+  from nerfds_torch.kernels import fused_trunk
+  nbytes = 4 * fused_trunk.backward_scratch_floats(n, depth, compute_dtype)
+  return 1e3 * 2 * nbytes / PEAK_BYTES_PER_S
+
+
+def check_plain_sums_in_order(torch, device, spec, weights):
+  """The premise of the bf16 kernels' resum (csrc/trunk_mma.cuh): the
+  plain bf16 version's products on the card (cuBLAS's float32 GEMM, TF32
+  off) give the bits of float32 adds in k order, at the trunk's shapes,
+  forward (h W) and reverse (c W^T)."""
+  bf = lambda t: t.to(torch.bfloat16).float()
+  gen = torch.Generator(device=device).manual_seed(11)
+  w = bf(weights.layers[1][0])
+
+  def in_order(a, b):
+    s = torch.zeros(a.shape[0], b.shape[1], device=device)
+    for k in range(a.shape[1]):
+      s = s + a[:, k:k + 1] * b[k:k + 1, :]
+    return s
+
+  for n in (4099, 65_536):
+    h = bf(torch.relu(torch.randn(n, spec.width, generator=gen,
+                                  device=device)))
+    c = bf(torch.randn(n, spec.width, generator=gen, device=device))
+    for name, a, b in (('h W', h, w), ('c W^T', c, w.T)):
+      same = torch.equal(a @ b, in_order(a, b.contiguous()))
+      print(f'  the plain version\'s {name} at N={n}: the bits of float32 '
+            f'adds in k order: {same}')
+      if not same:
+        raise AssertionError(f'{name} at N={n}: cuBLAS does not add in k '
+                             'order, which resum reproduces')
+
+
 def phase_trunk_bf16(torch, device):
   """Phase 10(a): K1f and K1b in their bf16-operand mode against their
   bf16 plain versions, at the render shape (K1f), the training shapes and
@@ -1428,15 +1582,16 @@ def phase_trunk_bf16(torch, device):
   print('== speed modes (a): K1f and K1b with bf16 operands vs their plain '
         'bf16 versions')
   spec, weights = nerf_ds_trunk(torch, device, seed=3)
+  check_plain_sums_in_order(torch, device, spec, weights)
   names = ('sigma', 'normal', 'trunk_out', 'bottleneck', 'g')
   fwd = dict(name='fused_trunk_fwd_bf16', route='cuda',
-             source='nerfds_torch/kernels/csrc/fused_trunk_fwd.cu',
+             source='nerfds_torch/kernels/csrc/fused_trunk_fwd_bf16.cu',
              replaces='nerfds_tpu/pallas/fused_trunk.py:252',
-             max_abs_err=0.0, library_ms=None)
+             design=BF16_DESIGN, max_abs_err=0.0, library_ms=None)
   bwd = dict(name='fused_trunk_bwd_bf16', route='cuda',
-             source='nerfds_torch/kernels/csrc/fused_trunk_bwd.cu',
+             source='nerfds_torch/kernels/csrc/fused_trunk_bwd_bf16.cu',
              replaces='nerfds_tpu/pallas/fused_trunk.py:295',
-             max_abs_err=0.0, library_ms=None)
+             design=BF16_DESIGN, max_abs_err=0.0, library_ms=None)
   with torch.no_grad():
     for n in K1_BF16_FWD_SIZES:
       err, feat, want = check_trunk_fwd_bf16(torch, device, spec, weights, n)
@@ -1456,26 +1611,28 @@ def phase_trunk_bf16(torch, device):
                                'the rule does not tell the modes apart')
         del f32
       del want
-      ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad(
-          feat, weights, spec, compute_dtype=bf16), 3, warmup=1)
-      f32_ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad(
-          feat, weights, spec), 3, warmup=1)
+      bf16_fn = lambda: fused_trunk.trunk_sigma_grad(
+          feat, weights, spec, compute_dtype=bf16)
+      f32_fn = lambda: fused_trunk.trunk_sigma_grad(feat, weights, spec)
+      ms, f32_ms = (device_ms(torch, fn, 10, match=TRUNK_KERNEL_MATCH)
+                    for fn in (bf16_fn, f32_fn))
+      wall_ms = time_ms(torch, bf16_fn, 10, warmup=2)
       plain_ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_reference(
           feat, weights, spec, compute_dtype=bf16), 3, warmup=1)
-      bound_ms, bound_by, fma_ms = trunk_bf16_bounds(
-          spec, weights, n, n * trunk_flops(spec),
-          n * (2 * spec.in_dim + 1 + spec.norm_dim + 2 * spec.width))
-      print(f'  time: bf16 kernel {ms:.3f} ms, f32 kernel {f32_ms:.3f} ms, '
-            f'plain bf16 {plain_ms:.3f} ms; bound {bound_ms:.3f} ms '
-            f'({bound_by}, bf16 tensor cores), f32-FMA ceiling {fma_ms:.3f} '
-            f'ms: {bound_ms / ms:.1%} and {fma_ms / ms:.1%}')
+      bound_ms, bound_by, fma_ms = bf16_fwd_bound(spec, weights, n)
+      print(f'  device time: bf16 kernel {ms:.3f} ms, f32 kernel '
+            f'{f32_ms:.3f} ms; a bf16 call with its wrapper {wall_ms:.3f} '
+            f'ms (events); plain bf16 {plain_ms:.3f} ms; bound '
+            f'{bound_ms:.3f} ms ({bound_by}, bf16 tensor cores), f32-FMA '
+            f'ceiling {fma_ms:.3f} ms: {bound_ms / ms:.1%} and '
+            f'{fma_ms / ms:.1%}')
       if n == K1_BF16_FWD_SIZES[0]:
-        fwd.update(ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
+        fwd.update(ms=ms, f32_ms=f32_ms, wall_ms=wall_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, fma_ceiling_ms=fma_ms)
       elif n != 4099:
         fwd.update({f'{k}_n{n}': v for k, v in dict(
-            ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            fma_ceiling_ms=fma_ms).items()})
+            ms=ms, f32_ms=f32_ms, wall_ms=wall_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, fma_ceiling_ms=fma_ms).items()})
       del feat
     for n in K1B_SIZES:
       err, feat, cots, want = check_trunk_bwd_bf16(torch, device, spec,
@@ -1497,10 +1654,13 @@ def phase_trunk_bf16(torch, device):
         del x32, w32
       del want
       if n != 4099:
-        ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
-            feat, weights, spec, cots, compute_dtype=bf16), 3, warmup=1)
-        f32_ms = time_ms(torch, lambda: fused_trunk.trunk_sigma_grad_backward(
-            feat, weights, spec, cots), 3, warmup=1)
+        bf16_fn = lambda: fused_trunk.trunk_sigma_grad_backward(
+            feat, weights, spec, cots, compute_dtype=bf16)
+        f32_fn = lambda: fused_trunk.trunk_sigma_grad_backward(
+            feat, weights, spec, cots)
+        ms, f32_ms = (device_ms(torch, fn, 10, match=TRUNK_KERNEL_MATCH)
+                      for fn in (bf16_fn, f32_fn))
+        wall_ms = time_ms(torch, bf16_fn, 10, warmup=2)
         plain_ms = time_ms(
             torch, lambda: fused_trunk.trunk_sigma_grad_backward_reference(
                 feat, weights, spec, cots, compute_dtype=bf16), 3, warmup=1)
@@ -1509,21 +1669,29 @@ def phase_trunk_bf16(torch, device):
                                               compute_dtype=bf16)
         torch.cuda.synchronize()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        n_weights = sum(w.numel() + b.numel() for w, b in weights.layers) + \
-            sum(t.numel() for t in (*weights.head, *weights.bottleneck))
-        bound_ms, bound_by, fma_ms = trunk_bf16_bounds(
-            spec, weights, n, n * trunk_bwd_flops(spec),
-            n * (2 * spec.in_dim + 1 + spec.norm_dim + 2 * spec.width
-                 + spec.in_dim) + n_weights)
-        print(f'  time: bf16 kernel {ms:.3f} ms, f32 kernel {f32_ms:.3f} ms, '
-              f'plain bf16 {plain_ms:.3f} ms; bound {bound_ms:.3f} ms '
-              f'({bound_by}), f32-FMA ceiling {fma_ms:.3f} ms: '
-              f'{bound_ms / ms:.1%} and {fma_ms / ms:.1%}; peak memory of a '
-              f'call {peak_gib:.2f} GiB (scratch '
+        bound_ms, bound_by, fma_ms = bf16_bwd_bound(spec, weights, n)
+        floor_ms = scratch_floor_ms(n, spec.depth, bf16)
+        print(f'  device time: bf16 kernel {ms:.3f} ms, f32 kernel '
+              f'{f32_ms:.3f} ms; a bf16 call with its wrapper {wall_ms:.3f} '
+              f'ms (events); plain bf16 {plain_ms:.3f} ms; bound '
+              f'{bound_ms:.3f} ms ({bound_by}), f32-FMA ceiling '
+              f'{fma_ms:.3f} ms: '
+              f'{bound_ms / ms:.1%} and {fma_ms / ms:.1%}; scratch floor '
+              f'{floor_ms:.3f} ms (f32 {scratch_floor_ms(n, spec.depth):.3f}); '
+              f'peak memory of a call {peak_gib:.2f} GiB (scratch '
               f'{4 * fused_trunk.backward_scratch_floats(n, spec.depth, bf16) / 2**30:.2f} GiB)')
-        vals = dict(ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
+        parts = profile_device(
+            torch, lambda: fused_trunk.trunk_sigma_grad_backward(
+                feat, weights, spec, cots, compute_dtype=bf16),
+            f'K1b bf16 at N={n}', top=4)
+        split = bwd_kernel_split(parts)
+        print(f'  K1b bf16 at N={n} by kernel: sweep {split["sweep_ms"]:.3f} '
+              f'ms, weight grads {split["wgrad_ms"]:.3f} ms, reduction '
+              f'{split["reduce_ms"]:.3f} ms')
+        vals = dict(ms=ms, f32_ms=f32_ms, wall_ms=wall_ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by,
-                    fma_ceiling_ms=fma_ms, peak_gib=peak_gib)
+                    fma_ceiling_ms=fma_ms, scratch_floor_ms=floor_ms,
+                    peak_gib=peak_gib, **split)
         if n == TRAIN_BATCH * 128:
           bwd.update(vals)
         else:
@@ -1956,7 +2124,8 @@ def phase_trunk_heads(torch, device):
   Returns {'fwd': {...}, 'bwd': {...}} keyed by head."""
   from nerfds_torch.kernels import fused_trunk
   names = ('sigma', 'normal', 'trunk_out', 'bottleneck', 'g')
-  out = {'fwd': {}, 'bwd': {}}
+  bf16 = torch.bfloat16
+  out = {'fwd': {}, 'bwd': {}, 'fwd_bf16': {}, 'bwd_bf16': {}}
   for norm_dim, has_bn in RADIANCE_HEADS:
     head = f'norm{norm_dim}_bottleneck{int(has_bn)}'
     print(f'== K1f and K1b at norm_dim={norm_dim}, has_bottleneck={has_bn}')
@@ -2007,6 +2176,30 @@ def phase_trunk_heads(torch, device):
                 f'MB): {bound_ms / ms:.1%} of the bound')
           out['bwd'][head] = dict(n=n, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
+        del feat, cots
+        # The bf16-operand kernels at this head, by phase 10(a)'s rule.
+        errs = [check_trunk_fwd_bf16(torch, device, spec, weights, n)[0]]
+        err, feat, cots, _ = check_trunk_bwd_bf16(torch, device, spec,
+                                                  weights, n)
+        errs.append(err)
+        for key, e in zip(('fwd_bf16', 'bwd_bf16'), errs):
+          entry = out[key].setdefault(head, dict(max_abs_err=0.0))
+          entry['max_abs_err'] = max(entry['max_abs_err'], e)
+        if n == RADIANCE_K1_SIZES[0]:
+          for key, fn in (
+              ('fwd_bf16', lambda: fused_trunk.trunk_sigma_grad(
+                  feat, weights, spec, compute_dtype=bf16)),
+              ('bwd_bf16', lambda: fused_trunk.trunk_sigma_grad_backward(
+                  feat, weights, spec, cots, compute_dtype=bf16))):
+            f32_fn = ((lambda: fused_trunk.trunk_sigma_grad(
+                feat, weights, spec)) if key == 'fwd_bf16' else
+                (lambda: fused_trunk.trunk_sigma_grad_backward(
+                    feat, weights, spec, cots)))
+            ms, f32_ms = (device_ms(torch, f, 3, match=TRUNK_KERNEL_MATCH)
+                          for f in (fn, f32_fn))
+            print(f'  K1{key[0]} bf16 device time: {ms:.3f} ms (f32 kernel '
+                  f'{f32_ms:.3f} ms)')
+            out[key][head].update(n=n, ms=ms, f32_ms=f32_ms)
         del feat, cots
     out['fwd'][head]['max_abs_err'] = fwd_err
     out['bwd'][head]['max_abs_err'] = bwd_err
@@ -3027,9 +3220,11 @@ def check_bench_kernels(torch, device):
   from the same parameters, batch and draws, each Adam first moment (a
   tenth of the gradient) within 1e-3 of its norm, as the card test holds
   it at batch 512. Returns ({kernel: max abs error}, the worst moment's
-  |got - want| / |want|, and the plain step's own float32 floor: the same
-  on the plain path with the rays' origins moved one ulp)."""
+  |got - want| / |want|, the plain step's own float32 floor: the same
+  on the plain path with the rays' origins moved one ulp, and each trunk
+  kernel's time at each of those rows, {'<kernel>_ms_n<N>': ms})."""
   from nerfds_torch import bench
+  from nerfds_torch.kernels import fused_trunk
   batch = BENCH_BATCHES[0]
   print(f' the kernels at the bench\'s shapes, batch {batch}')
   spec, weights = nerf_ds_trunk(torch, device, seed=4)
@@ -3044,10 +3239,38 @@ def check_bench_kernels(torch, device):
       'fused_trunk_bwd_bf16': lambda n: check_trunk_bwd_bf16(
           torch, device, spec, weights, n)}
   errs = dict.fromkeys([*checks, 'composite_fwd'], 0.0)
+  bounds = {
+      'fused_trunk_fwd': lambda n: trunk_fwd_bound(spec, weights, n)[0],
+      'fused_trunk_bwd': lambda n: trunk_bwd_bound(spec, weights, n)[0],
+      'fused_trunk_fwd_bf16': lambda n: bf16_fwd_bound(spec, weights, n)[0],
+      'fused_trunk_bwd_bf16': lambda n: bf16_bwd_bound(spec, weights, n)[0]}
+  times = {}
+  bf16 = torch.bfloat16
   with torch.no_grad():
     for samples in (64, 128):  # the coarse and the fine level
+      n = batch * samples
       for name, check in checks.items():
-        errs[name] = max(errs[name], check(batch * samples)[0])
+        err, feat, *rest = check(n)
+        errs[name] = max(errs[name], err)
+        # Each trunk kernel timed on the inputs it was checked on, the
+        # bf16 ones beside the float32 ones.
+        cdt = bf16 if name.endswith('bf16') else None
+        if name.startswith('fused_trunk_fwd'):
+          fn = lambda: fused_trunk.trunk_sigma_grad(feat, weights, spec,
+                                                    compute_dtype=cdt)
+        else:
+          fn = lambda: fused_trunk.trunk_sigma_grad_backward(
+              feat, weights, spec, rest[0], compute_dtype=cdt)
+        times[f'{name}_ms_n{n}'] = device_ms(torch, fn, 3,
+                                             match=TRUNK_KERNEL_MATCH)
+        times[f'{name}_bound_ms_n{n}'] = bounds[name](n)
+        if name.startswith('fused_trunk_bwd'):
+          times[f'{name}_scratch_floor_ms_n{n}'] = scratch_floor_ms(
+              n, spec.depth, cdt)
+        del feat, rest
+      print(f'  times at N={n} (bound): ' + ', '.join(
+          f'{name} {times[f"{name}_ms_n{n}"]:.3f} ms '
+          f'({times[f"{name}_bound_ms_n{n}"]:.3f})' for name in checks))
       errs['composite_fwd'] = max(errs['composite_fwd'], check_composite(
           torch, composite_inputs(torch, batch, samples, gen, device)))
   moments = {}
@@ -3073,7 +3296,7 @@ def check_bench_kernels(torch, device):
   if not rels[worst] < 1e-3:
     raise AssertionError(f'bench step at batch {batch}: {worst} '
                          f'{rels[worst]:.2e} of its norm from the plain path')
-  return errs, rels[worst], max(floor.values())
+  return errs, rels[worst], max(floor.values()), times
 
 
 def phase_clis(torch, device):
@@ -3098,7 +3321,7 @@ def phase_clis(torch, device):
   print('== phase 15: the measuring and study CLIs')
   launches, out = {}, {'bench': {}}
   out['bench_shapes'] = dict(zip(
-      ('max_abs_err', 'moment_rel_worst', 'moment_floor_worst'),
+      ('max_abs_err', 'moment_rel_worst', 'moment_floor_worst', 'trunk_ms'),
       check_bench_kernels(torch, device)))
   walls = out['wall_s'] = {'bench_shapes': time.perf_counter() - phase_start}
 
@@ -3363,18 +3586,30 @@ def main() -> int:
 
   from nerfds_torch.kernels import build
   start = time.perf_counter()
+  walls = {}
+
+  def stamp(name):  # the script's wall time up to the start of a phase
+    walls[name] = round(time.perf_counter() - start, 1)
+    print(f'[{walls[name]} s] {name}')
+
   build.load_library()
   print(f'== build: {time.perf_counter() - start:.1f} s')
   for text in build.build_report().splitlines():
     if any(s in text for s in ('entry function', 'registers', 'spill')):
       print(f'  ptxas: {text.strip()}')
+  sass = check_tensor_cores()
 
+  stamp('K2, K1f')
   results = [phase_composite(torch, device), phase_fused_trunk(torch, device)]
+  stamp('render')
   launches = phase_render(torch, device, [r['name'] for r in results])
   for r in results:
     r['launches'] = launches[r['name']]
+  stamp('K1b')
   results.append(phase_fused_trunk_bwd(torch, device))
+  stamp('K3')
   results.append(phase_fused_mlp(torch, device))
+  stamp('train')
   train_launches, train, trainer = phase_train(torch, device)
   for r in results:
     r['launches_render'] = launches[r['name']]
@@ -3383,12 +3618,19 @@ def main() -> int:
   if launches['fused_mlp_fwd'] or train_launches['fused_mlp_fwd']:
     raise AssertionError('K3 ran on the render or the training path')
   results[2]['launches'] = train_launches['fused_trunk_bwd']
+  stamp('eval')
   evaluation = phase_eval(torch, device)
   results[3]['launches'] = evaluation['k3_launches']
+  stamp('capture')
   capture_launches, capture = phase_capture(torch, device)
   for r in results:
     r['launches_capture'] = capture_launches[r['name']]
+  stamp('10(a) bf16 kernels')
   bf16_results = phase_trunk_bf16(torch, device)
+  for r in bf16_results:
+    r['sass'] = {k: v for k, v in sass.items()
+                 if BF16_TC_KERNELS[k] == r['name']}
+  stamp('10(b)-(e) speed modes')
   speed_launches, speed = phase_speed_modes(torch, device, trainer)
   for r in bf16_results:
     r['launches'] = speed_launches['bf16'][r['name']]
@@ -3396,22 +3638,33 @@ def main() -> int:
     r['launches_train'] = train_launches[r['name']]
     r['launches_capture'] = capture_launches[r['name']]
   results += bf16_results
+  stamp('11 deformation')
   deformation_launches, deformation = phase_deformation(torch, device,
                                                         trainer)
+  stamp('12 heads')
   heads = phase_trunk_heads(torch, device)
-  results[1]['heads'], results[2]['heads'] = heads['fwd'], heads['bwd']
+  for r in results:
+    key = {'fused_trunk_fwd': 'fwd', 'fused_trunk_bwd': 'bwd',
+           'fused_trunk_fwd_bf16': 'fwd_bf16',
+           'fused_trunk_bwd_bf16': 'bwd_bf16'}.get(r['name'])
+    if key:
+      r['heads'] = heads[key]
+  stamp('12 radiance')
   radiance_launches, radiance = phase_radiance(torch, device, trainer, train)
   for r in results:
     r['launches_radiance'] = {mode: counts[r['name']]
                               for mode, counts in radiance_launches.items()}
+  stamp('13 variants')
   variants_launches, variants = phase_variants(torch, device, trainer)
   for r in results:
     r['launches_variants'] = {mode: counts[r['name']]
                               for mode, counts in variants_launches.items()}
+  stamp('14 parallel')
   parallel_launches, parallel = phase_parallel(torch, device, trainer)
   for r in results:
     r['launches_parallel'] = {case: counts[r['name']]
                               for case, counts in parallel_launches.items()}
+  stamp('15 CLIs')
   bench_launches, clis = phase_clis(torch, device)
   for r in results:
     r['launches_bench'] = {part: counts[r['name']]
@@ -3424,6 +3677,7 @@ def main() -> int:
     r['launches_deformation'] = {
         mode: counts[r['name']]
         for mode, counts in deformation_launches.items()}
+  stamp('end')
   print(json.dumps({'kernels': results}))
   print(f'training at batch {TRAIN_BATCH}, steady steps: ' + '; '.join(
       f'{name} path {t["rays_per_s"]} rays/s, {t["step_ms"]} ms a step, peak '
@@ -3437,6 +3691,7 @@ def main() -> int:
   print('variants: ' + json.dumps(variants))
   print('parallel: ' + json.dumps(parallel))
   print('bench: ' + json.dumps(clis))
+  print('wall s at the start of each phase: ' + json.dumps(walls))
   print(f'card: {card_line()}')
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

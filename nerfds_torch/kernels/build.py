@@ -27,18 +27,23 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PTRS = ctypes.POINTER(ctypes.c_uint64)
+# The trunk kernels' float32 and bf16 entries take the same arguments in
+# the forward, and in the backward after their inputs; the bf16 entries
+# also take a buffer of weight norms before the stream.
+_TRUNK_FWD = [_P, _PTRS, _I, _I, _I, ctypes.c_uint, _I, _I, _I, _P, _P, _P,
+              _P, _P, _P]
+_TRUNK_BWD = [_I, _I, _I, ctypes.c_uint, _I, _I, _I, _I, ctypes.c_long, _P,
+              _P, _P, _P]
 # name -> argtypes; every function returns cudaGetLastError() as an int.
 SIGNATURES = {
     'composite_fwd': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, ctypes.c_float, _P],
-    'fused_trunk_fwd': [_P, ctypes.POINTER(ctypes.c_uint64), _I, _I, _I,
-                        ctypes.c_uint, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                        _P],
-    'fused_trunk_bwd': [_P, _P, _P, _P, _P, _P, _P,
-                        ctypes.POINTER(ctypes.c_uint64),
-                        ctypes.POINTER(ctypes.c_uint64), _P, _I, _I, _I,
-                        ctypes.c_uint, _I, _I, _I, _I, _I, ctypes.c_long, _P,
-                        _P, _P, _P],
+    'fused_trunk_fwd': _TRUNK_FWD,
+    'fused_trunk_fwd_bf16': [*_TRUNK_FWD[:-1], _P, _P],
+    'fused_trunk_bwd': [_P, _P, _P, _P, _P, _PTRS, _PTRS, _P, *_TRUNK_BWD],
+    'fused_trunk_bwd_bf16': [_P, _P, _P, _P, _P, _P, _P, _PTRS, _PTRS,
+                             *_TRUNK_BWD[:-1], _P, _P],
     'fused_mlp_fwd': [_P, _I, _I, _I, ctypes.POINTER(ctypes.c_uint64),
                       ctypes.POINTER(ctypes.c_int), _I, _I, _P, _P],
 }
@@ -63,10 +68,10 @@ def _digest(sources) -> str:
   return h.hexdigest()[:16]
 
 
-def _compile(sources, out: pathlib.Path) -> None:
-  """Compiles every source in parallel and links ``out``; keeps the
-  compiler's report (``-Xptxas -v``: registers, shared memory, spills)
-  beside it as ``.log``."""
+def _compile(sources, out: pathlib.Path, defines=()) -> None:
+  """Compiles every source in parallel (with ``-D`` of each of
+  ``defines``) and links ``out``; keeps the compiler's report (``-Xptxas
+  -v``: registers, shared memory, spills) beside it as ``.log``."""
   nvcc = nvcc_path()
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -75,7 +80,8 @@ def _compile(sources, out: pathlib.Path) -> None:
       obj = pathlib.Path(tmp) / (src.stem + '.o')
       objs.append(obj)
       procs.append((src, subprocess.Popen(
-          [nvcc, *NVCC_FLAGS, '-c', str(src), '-o', str(obj)],
+          [nvcc, *NVCC_FLAGS, *(f'-D{d}' for d in defines), '-c', str(src),
+           '-o', str(obj)],
           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     report = []
     failed = []
@@ -96,13 +102,18 @@ def _compile(sources, out: pathlib.Path) -> None:
     os.replace(tmp_out, out)
 
 
+def library_path() -> pathlib.Path:
+  """Where the library of the current sources is built."""
+  sources = sorted(CSRC.glob('*.cu'))
+  return BUILD_DIR / f'libnerfds_kernels_{_digest(sources)}.so'
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
   """Builds (once per source hash) and loads the kernel library."""
-  sources = sorted(CSRC.glob('*.cu'))
-  out = BUILD_DIR / f'libnerfds_kernels_{_digest(sources)}.so'
+  out = library_path()
   if not out.exists():
-    _compile(sources, out)
+    _compile(sorted(CSRC.glob('*.cu')), out)
   lib = ctypes.CDLL(str(out))
   for name, argtypes in SIGNATURES.items():
     fn = getattr(lib, name)
@@ -113,8 +124,7 @@ def load_library() -> ctypes.CDLL:
 
 def build_report() -> str:
   """The compiler's report of the loaded library's build, if kept."""
-  sources = sorted(CSRC.glob('*.cu'))
-  log = BUILD_DIR / f'libnerfds_kernels_{_digest(sources)}.log'
+  log = library_path().with_suffix('.log')
   return log.read_text() if log.exists() else ''
 
 

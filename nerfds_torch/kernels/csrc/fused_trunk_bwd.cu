@@ -1,5 +1,5 @@
 // Hand-derived backward of the NeRF trunk with dsigma/dfeat for Hopper
-// (sm_90a), f32 in and out, with f32 or bf16 operands.
+// (sm_90a), f32 in and out.
 //
 // Replaces the TPU kernel nerfds_tpu/pallas/fused_trunk.py:_bwd_kernel
 // (called by _pallas_backward). Given the forward's input feat [N,D] and the
@@ -49,22 +49,8 @@
 // 3. trunk_wgrad_reduce_kernel adds the slices' partials in slice order.
 // No atomics: two launches on the same inputs give the same bits.
 //
-// bf16-operand mode (the TPU kernel's compute_dtype = bf16). The weights
-// arrive in bf16 (biases f32); every product takes bf16 operands, widened
-// to f32 and summed in f32, rounded where the TPU kernel casts: feat,
-// G_bar, the head cotangent and B_bar as they are read; h and tau as they
-// are stored; c1 and c_g where they enter a product. The masks test the
-// stored bf16 h. The sums that the TPU kernel takes in f32 stay f32: the
-// bias grads (sums of the unrounded c1, B_bar and head cotangent) and the
-// sigma column's sum of tau_L. So the scratch holds what the TPU kernel
-// keeps in its bf16 scratch, h_i and tau_i, in bf16, and the rest in f32:
-// c1_i and c_g,i, and the last tangent layer tau_L, whose f32 sum feeds
-// the head grad. At depth 8, N = 65,536: h 268 MB, tau 235 MB (7 layers),
-// tau_L 67 MB, c1 and c_g 1,074 MB; 1,644 MB against 2,147 MB in f32.
-// The weight-grad kernel reads h, tau, and bf16 copies of feat and G_bar
-// (made by the wrapper) as bf16, and rounds c1, c_g, B_bar and the head
-// cotangent to bf16 after it has summed them for the bias grads.
-#include <cuda_bf16.h>
+// The bf16-operand mode runs on the tensor cores instead:
+// fused_trunk_bwd_bf16.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,45 +65,40 @@ constexpr int TJ = 128;       // weight-grad tile columns (output channels)
 constexpr int RB = 16;        // rows a stage of the weight-grad ring
 constexpr int WSTAGES = 3;    // stages of the weight-grad ring
 
-// Weights in T (float or bf16), biases in f32.
-template <class T>
 struct BwdParams {
-  const T* wf_h[MAXD];  // forward weight read by h ([D,256] at layer 0)
-  const T* wf_x[MAXD];  // forward weight read by feat at skip layers
-  const T* wr_h[MAXD];  // reverse weight to h, [256 out, 256 in]
-  const T* wr_x[MAXD];  // reverse weight to feat, [256 out, NW]
+  const float* wf_h[MAXD];  // forward weight read by h ([D,256] at layer 0)
+  const float* wf_x[MAXD];  // forward weight read by feat at skip layers
+  const float* wr_h[MAXD];  // reverse weight to h, [256 out, 256 in]
+  const float* wr_x[MAXD];  // reverse weight to feat, [256 out, NW]
   const float* b[MAXD];
-  const T* head_w;      // [256, hc]: column 0 is w_sigma
-  const T* wa_t;        // [hcu, 256]: the used head columns, transposed
-  const T* wb_t;        // [256, 256]: the bottleneck, transposed, or null
+  const float* head_w;      // [256, hc]: column 0 is w_sigma
+  const float* wa_t;        // [hcu, 256]: the used head columns, transposed
+  const float* wb_t;        // [256, 256]: the bottleneck, transposed, or null
 };
 
-template <class T>
 __host__ __device__ constexpr int sweep_smem_bytes(int depth) {
-  return (2 * TILE_FLOATS + RING_FLOATS) * static_cast<int>(sizeof(T)) +
-         depth * MASK_BYTES;
+  return (2 * TILE_FLOATS + RING_FLOATS) * 4 + depth * MASK_BYTES;
 }
 
 // feat and G_bar have rows of ldx = D rounded up to 4 floats; the head
 // cotangent rows of HCMAX floats (the wrapper pads them). h_s holds every
 // layer's h; tau_s layers 0 .. depth - 2 of tau, tau_last the last.
-template <class T>
 __global__ void __launch_bounds__(NT, 1) trunk_bwd_sweep_kernel(
     const float* __restrict__ feat, const float* __restrict__ head_cot,
     const float* __restrict__ tbar, const float* __restrict__ bbar,
     const float* __restrict__ gbar, int n, int d, int ldx, int depth,
     unsigned skip_bits, int hc, int hcu, int has_bn,
-    const __grid_constant__ BwdParams<T> p,
-    float* __restrict__ xbar, T* __restrict__ h_s,
-    T* __restrict__ tau_s, float* __restrict__ tau_last,
+    const __grid_constant__ BwdParams p,
+    float* __restrict__ xbar, float* __restrict__ h_s,
+    float* __restrict__ tau_s, float* __restrict__ tau_last,
     float* __restrict__ c1_s, float* __restrict__ cg_s) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* buf0 = reinterpret_cast<T*>(smem);  // h, tau, B_bar, c_g
-  T* buf1 = buf0 + TILE_FLOATS;          // c1
-  T* xbuf = buf1;                        // feat   [DMAX][LDA]
-  T* gbuf = buf1 + XTILE_FLOATS;         // G_bar  [DMAX][LDA]
-  T* hcbuf = gbuf + XTILE_FLOATS;        // head cotangent [KC][LDA]
-  T* ring = buf1 + TILE_FLOATS;
+  float* buf0 = reinterpret_cast<float*>(smem);  // h, tau, B_bar, c_g
+  float* buf1 = buf0 + TILE_FLOATS;              // c1
+  float* xbuf = buf1;                            // feat   [DMAX][LDA]
+  float* gbuf = buf1 + XTILE_FLOATS;             // G_bar  [DMAX][LDA]
+  float* hcbuf = gbuf + XTILE_FLOATS;            // head cotangent [KC][LDA]
+  float* ring = buf1 + TILE_FLOATS;
   uint64_t* masks = reinterpret_cast<uint64_t*>(ring + RING_FLOATS);
 
   const int t = threadIdx.x;
@@ -137,7 +118,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_sweep_kernel(
       mm_wide(acc, buf0, WIDTH, p.wf_h[i], ring);
       if ((skip_bits >> i) & 1u) mm_wide(acc, xbuf, d, p.wf_x[i], ring);
     }
-    masks[i * NT + t] = relu_bits<T>(acc);
+    masks[i * NT + t] = relu_bits(acc);
     if (i + 1 < depth) put_tile(buf0, acc);
     store_rows(h_s + i * layer, row0, n, acc);
   }
@@ -201,18 +182,15 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_sweep_kernel(
 // One grad: out[k, j] (row stride ldo) = sum over rows of
 // A[row, k] C[row, j] + A2[row, k] C2[row, j], k < k_dim, j < nc, and, if
 // bias is set, bias[j] = sum over rows of C[row, j]. A2 null means no
-// second product. C and C2 are f32. mode 0: A and A2 f32, nothing
-// rounded. mode 1: A and A2 bf16, C and C2 rounded to bf16 for the
-// products (the bias sums the unrounded C). mode 2: as 1 but A2 f32.
+// second product.
 struct WgDesc {
-  const void* a;
-  const void* a2;
+  const float* a;
+  const float* a2;
   const float* c;
   const float* c2;
   float* out;
   float* bias;
   int lda, ldc, k_dim, nc, ldo;
-  int mode;
   int tile_begin;       // first block (grid x) of this grad
   int j_tiles;          // tiles along j
   long long part_off;   // offset of this grad's partials within a split
@@ -234,39 +212,36 @@ constexpr int WG_STAGE = 4 * RB * TK;
 constexpr int WG_SMEM_BYTES = WSTAGES * WG_STAGE * 4;
 
 // Copies the 16-byte pieces of rows [rb, rb + RB) x columns [col0,
-// col0 + 128) of a row-major matrix (row stride ld, a multiple of 16
-// bytes) into dst [RB][128]; rows at or past rend and columns at or past
-// ncol are zero.
-template <class T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src,
+// col0 + 128) of a row-major matrix (row stride ld) into dst [RB][128];
+// rows at or past rend and columns at or past ncol are zero.
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
                                            int ld, int col0, int ncol, int rb,
                                            int rend) {
-  constexpr int EPP = 16 / sizeof(T);  // elements a 16-byte piece
-  constexpr int PER_ROW = TK / EPP;
 #pragma unroll
-  for (int q = 0; q < RB * PER_ROW / 256; ++q) {
+  for (int q = 0; q < RB * TK / 4 / 256; ++q) {
     const int e = threadIdx.x + q * 256;
-    const int r = e / PER_ROW, c = (e % PER_ROW) * EPP;
-    const int row = rb + r, col = col0 + c;
-    const int valid = row < rend ? max(0, min(EPP, ncol - col)) : 0;
-    const T* from = valid ? src + static_cast<size_t>(row) * ld + col : src;
-    cp_async16(dst + r * TK + c, from, static_cast<int>(sizeof(T)) * valid);
+    const int r = e >> 5, c4 = e & 31;
+    const int row = rb + r, col = col0 + c4 * 4;
+    const int valid = row < rend ? max(0, min(4, ncol - col)) : 0;
+    const float* from =
+        valid ? src + static_cast<size_t>(row) * ld + col : src;
+    cp_async16(dst + r * TK + c4 * 4, from, 4 * valid);
   }
-}
-
-__device__ __forceinline__ float4 round4(float4 v) {
-  return make_float4(round_to<__nv_bfloat16>(v.x), round_to<__nv_bfloat16>(v.y),
-                     round_to<__nv_bfloat16>(v.z), round_to<__nv_bfloat16>(v.w));
 }
 
 // A block owns a 128 x 128 output tile. Warp w covers k rows (w / 2) * 32
 // .. + 32 and j columns (w % 2) * 64 .. + 64; its lane l keeps the 8 x 8
 // outputs at k rows (l / 8) * 4 + {0..3, 16..19} and j columns
-// (l % 8) * 4 + {0..3, 32..35} of the warp's in registers. TA and TA2 are
-// the element types of A and A2; RND rounds C and C2 to bf16.
-template <class TA, class TA2, bool RND>
-__device__ __forceinline__ void wgrad_tile(const WgDesc& D, const WgParams& p,
-                                           float* wsm) {
+// (l % 8) * 4 + {0..3, 32..35} of the warp's in registers.
+__global__ void __launch_bounds__(256, 2) trunk_wgrad_kernel(
+    const __grid_constant__ WgParams p) {
+  extern __shared__ __align__(16) float wsm[];  // [WSTAGES][WG_STAGE]
+  int di = 0;
+  while (di + 1 < p.ndesc &&
+         p.desc[di + 1].tile_begin <= static_cast<int>(blockIdx.x))
+    ++di;
+  const WgDesc& D = p.desc[di];
   const int local = blockIdx.x - D.tile_begin;
   const int k0 = (local / D.j_tiles) * TK, j0 = (local % D.j_tiles) * TJ;
   const int split = blockIdx.y;
@@ -278,19 +253,14 @@ __device__ __forceinline__ void wgrad_tile(const WgDesc& D, const WgParams& p,
   const int jb = (((t >> 5) & 1) << 6) + ((t & 7) << 2);   // first j column
   const bool two = D.a2 != nullptr;
   const bool bias = D.bias != nullptr && k0 == 0;
-  const TA* a = static_cast<const TA*>(D.a);
-  const TA2* a2 = static_cast<const TA2*>(D.a2);
 
-  // A stage: A, C, A2, C2 regions of RB x 128 floats each (a bf16 operand
-  // fills the first half of its region).
   auto load = [&](int s, int q) {
     float* st = wsm + s * WG_STAGE;
     const int rb = rbeg + q * RB;
-    stage_rows(reinterpret_cast<TA*>(st), a, D.lda, k0, D.k_dim, rb, rend);
+    stage_rows(st, D.a, D.lda, k0, D.k_dim, rb, rend);
     stage_rows(st + RB * TK, D.c, D.ldc, j0, D.nc, rb, rend);
     if (two) {
-      stage_rows(reinterpret_cast<TA2*>(st + 2 * RB * TK), a2, D.lda, k0,
-                 D.k_dim, rb, rend);
+      stage_rows(st + 2 * RB * TK, D.a2, D.lda, k0, D.k_dim, rb, rend);
       stage_rows(st + 3 * RB * TK, D.c2, D.ldc, j0, D.nc, rb, rend);
     }
   };
@@ -311,30 +281,23 @@ __device__ __forceinline__ void wgrad_tile(const WgDesc& D, const WgParams& p,
     const float* st = wsm + (q % WSTAGES) * WG_STAGE;
 #pragma unroll 4
     for (int r = 0; r < RB; ++r) {
-      const TA* as = reinterpret_cast<const TA*>(st) + r * TK;
+      const float* as = st + r * TK;
       const float* cs = st + RB * TK + r * TK;
-      float4 c0 = ld4(cs + jb);
-      float4 c1 = ld4(cs + jb + 32);
+      const float4 c0 = *reinterpret_cast<const float4*>(cs + jb);
+      const float4 c1 = *reinterpret_cast<const float4*>(cs + jb + 32);
       if (bias) {
         bsum[0] += c0.x; bsum[1] += c0.y; bsum[2] += c0.z; bsum[3] += c0.w;
         bsum[4] += c1.x; bsum[5] += c1.y; bsum[6] += c1.z; bsum[7] += c1.w;
       }
-      if (RND) {
-        c0 = round4(c0);
-        c1 = round4(c1);
-      }
-      fma_8x8(acc, ld4(as + kb), ld4(as + kb + 16), c0, c1);
+      fma_8x8(acc, *reinterpret_cast<const float4*>(as + kb),
+              *reinterpret_cast<const float4*>(as + kb + 16), c0, c1);
       if (two) {
-        const TA2* as2 =
-            reinterpret_cast<const TA2*>(st + 2 * RB * TK) + r * TK;
+        const float* as2 = st + 2 * RB * TK + r * TK;
         const float* cs2 = st + 3 * RB * TK + r * TK;
-        float4 d0 = ld4(cs2 + jb);
-        float4 d1 = ld4(cs2 + jb + 32);
-        if (RND) {
-          d0 = round4(d0);
-          d1 = round4(d1);
-        }
-        fma_8x8(acc, ld4(as2 + kb), ld4(as2 + kb + 16), d0, d1);
+        fma_8x8(acc, *reinterpret_cast<const float4*>(as2 + kb),
+                *reinterpret_cast<const float4*>(as2 + kb + 16),
+                *reinterpret_cast<const float4*>(cs2 + jb),
+                *reinterpret_cast<const float4*>(cs2 + jb + 32));
       }
     }
   }
@@ -360,96 +323,59 @@ __device__ __forceinline__ void wgrad_tile(const WgDesc& D, const WgParams& p,
   }
 }
 
-__global__ void __launch_bounds__(256, 2) trunk_wgrad_kernel(
-    const __grid_constant__ WgParams p) {
-  extern __shared__ __align__(16) float wsm[];  // [WSTAGES][WG_STAGE]
-  int di = 0;
-  while (di + 1 < p.ndesc &&
-         p.desc[di + 1].tile_begin <= static_cast<int>(blockIdx.x))
-    ++di;
-  const WgDesc& D = p.desc[di];
-  if (D.mode == 0)
-    wgrad_tile<float, float, false>(D, p, wsm);
-  else if (D.mode == 1)
-    wgrad_tile<__nv_bfloat16, __nv_bfloat16, true>(D, p, wsm);
-  else
-    wgrad_tile<__nv_bfloat16, float, true>(D, p, wsm);
-}
+}  // namespace
 
-// out = sum of the splits' partials, in split order. A grad's partials are
-// its k_dim x nc kernel entries, then its nc bias entries if it has them.
-__global__ void trunk_wgrad_reduce_kernel(const __grid_constant__ WgParams p,
-                                          int splits) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= p.per_split) return;
-  int di = 0;
-  while (di + 1 < p.ndesc && p.desc[di + 1].part_off <= e) ++di;
-  const WgDesc& D = p.desc[di];
-  const long long local = e - D.part_off;
-  float s = 0.0f;
-  for (int sp = 0; sp < splits; ++sp)
-    s += p.partials[static_cast<size_t>(sp) * p.per_split + e];
-  const long long kernel_size = static_cast<long long>(D.k_dim) * D.nc;
-  if (local < kernel_size) {
-    const int k = static_cast<int>(local / D.nc), j = static_cast<int>(local % D.nc);
-    D.out[static_cast<size_t>(k) * D.ldo + j] = s;
-  } else {
-    D.bias[local - kernel_size] = s;
-  }
-}
-
-template <class T>
-int launch_bwd(const float* feat, const float* head_cot, const float* tbar,
-               const float* bbar, const float* gbar, const void* feat16,
-               const void* gbar16, int ld16, const uint64_t* wptrs,
-               const uint64_t* gptrs, const float* e0, int n, int d,
-               int depth, unsigned skip_bits, int hc, int hcu, int has_bn,
-               int splits, long per_split, float* xbar, float* scratch,
-               float* partials, cudaStream_t st) {
-  constexpr bool kHalf = sizeof(T) == 2;
+// wptrs: five per layer (wf_h, wf_x, wr_h, wr_x, bias; 0 where unused; wr_x
+// zero-padded to NW = 64 columns), then head_w, wa_t, wb_t (0 without a
+// bottleneck). gptrs: (kernel grad, bias grad) per layer, then the
+// bottleneck's (0, 0 without one), then the head's. feat and gbar have rows
+// of D rounded up to 4 floats, head_cot and e0 rows of HCMAX = 8 floats
+// (zero past hcu; e0 is 1 in column 0). scratch holds 4 * depth * N * 256
+// floats, partials splits * per_split floats.
+// Returns cudaGetLastError() of the launches.
+extern "C" int fused_trunk_bwd(const float* feat, const float* head_cot,
+                               const float* tbar, const float* bbar,
+                               const float* gbar, const uint64_t* wptrs,
+                               const uint64_t* gptrs, const float* e0, int n,
+                               int d, int depth, unsigned skip_bits, int hc,
+                               int hcu, int has_bn, int splits, long per_split,
+                               float* xbar, float* scratch, float* partials,
+                               void* stream) {
+  if (depth < 1 || depth > MAXD || d < 1 || d > DMAX || hc < 1 ||
+      hc > HCMAX || hcu < 1 || hcu > hc || n < 1 || splits < 1 ||
+      (skip_bits & 1u) || (has_bn && bbar == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int ldx = (d + 3) & ~3;
-  BwdParams<T> bp = {};
+  BwdParams bp = {};
   for (int i = 0; i < depth; ++i) {
-    bp.wf_h[i] = reinterpret_cast<const T*>(wptrs[5 * i]);
-    bp.wf_x[i] = reinterpret_cast<const T*>(wptrs[5 * i + 1]);
-    bp.wr_h[i] = reinterpret_cast<const T*>(wptrs[5 * i + 2]);
-    bp.wr_x[i] = reinterpret_cast<const T*>(wptrs[5 * i + 3]);
+    bp.wf_h[i] = reinterpret_cast<const float*>(wptrs[5 * i]);
+    bp.wf_x[i] = reinterpret_cast<const float*>(wptrs[5 * i + 1]);
+    bp.wr_h[i] = reinterpret_cast<const float*>(wptrs[5 * i + 2]);
+    bp.wr_x[i] = reinterpret_cast<const float*>(wptrs[5 * i + 3]);
     bp.b[i] = reinterpret_cast<const float*>(wptrs[5 * i + 4]);
   }
-  bp.head_w = reinterpret_cast<const T*>(wptrs[5 * depth]);
-  bp.wa_t = reinterpret_cast<const T*>(wptrs[5 * depth + 1]);
-  bp.wb_t = reinterpret_cast<const T*>(wptrs[5 * depth + 2]);
+  bp.head_w = reinterpret_cast<const float*>(wptrs[5 * depth]);
+  bp.wa_t = reinterpret_cast<const float*>(wptrs[5 * depth + 1]);
+  bp.wb_t = reinterpret_cast<const float*>(wptrs[5 * depth + 2]);
 
-  // Scratch: c1 and c_g of every layer and the last tau layer in f32, then
-  // h of every layer and tau of the others in T.
+  // Scratch: c1 and c_g of every layer, the last tau layer, then h of every
+  // layer and tau of the others.
   const size_t layer = static_cast<size_t>(n) * WIDTH;
   float* c1_s = scratch;
   float* cg_s = c1_s + depth * layer;
   float* tau_last = cg_s + depth * layer;
-  T* h_s = reinterpret_cast<T*>(tau_last + layer);
-  T* tau_s = h_s + depth * layer;
+  float* h_s = tau_last + layer;
+  float* tau_s = h_s + depth * layer;
 
-  // The grads, in the order of their partials. The products' A operands
-  // in T: feat and G_bar themselves, or the wrapper's bf16 copies.
-  const void* fa = kHalf ? feat16 : static_cast<const void*>(feat);
-  const void* ga = kHalf ? gbar16 : static_cast<const void*>(gbar);
-  const int lda_x = kHalf ? ld16 : ldx;
-  const int mode = kHalf ? 1 : 0;
+  // The grads, in the order of their partials.
   WgParams wp = {};
   int tiles = 0;
   long long off = 0;
-  auto add = [&](const void* a, const void* a2, const float* c,
+  auto add = [&](const float* a, const float* a2, const float* c,
                  const float* c2, int lda, int ldc, int k_dim, int nc,
-                 float* out, int ldo, float* bias, int m) {
-    WgDesc& D = wp.desc[wp.ndesc++];
-    D.a = a; D.a2 = a2; D.c = c; D.c2 = c2; D.out = out; D.bias = bias;
-    D.lda = lda; D.ldc = ldc; D.k_dim = k_dim; D.nc = nc; D.ldo = ldo;
-    D.mode = m;
-    D.tile_begin = tiles;
-    D.j_tiles = (nc + TJ - 1) / TJ;
-    D.part_off = off;
-    tiles += ((k_dim + TK - 1) / TK) * D.j_tiles;
-    off += static_cast<long long>(k_dim) * nc + (bias ? nc : 0);
+                 float* out, int ldo, float* bias) {
+    WgDesc& D = add_grad<TK, TJ>(wp, tiles, off, k_dim, nc, out, ldo, bias);
+    D.a = a; D.a2 = a2; D.c = c; D.c2 = c2; D.lda = lda; D.ldc = ldc;
   };
   for (int i = 0; i < depth; ++i) {
     float* dw = reinterpret_cast<float*>(gptrs[2 * i]);
@@ -457,28 +383,27 @@ int launch_bwd(const float* feat, const float* head_cot, const float* tbar,
     const float* c1 = c1_s + i * layer;
     const float* cg = cg_s + i * layer;
     if (i == 0) {
-      add(fa, ga, c1, cg, lda_x, WIDTH, d, WIDTH, dw, WIDTH, db, mode);
+      add(feat, gbar, c1, cg, ldx, WIDTH, d, WIDTH, dw, WIDTH, db);
     } else {
       add(h_s + (i - 1) * layer, tau_s + (i - 1) * layer, c1, cg, WIDTH,
-          WIDTH, WIDTH, WIDTH, dw, WIDTH, db, mode);
+          WIDTH, WIDTH, WIDTH, dw, WIDTH, db);
       if ((skip_bits >> i) & 1u)
-        add(fa, ga, c1, cg, lda_x, WIDTH, d, WIDTH, dw + WIDTH * WIDTH, WIDTH,
-            nullptr, mode);
+        add(feat, gbar, c1, cg, ldx, WIDTH, d, WIDTH, dw + WIDTH * WIDTH,
+            WIDTH, nullptr);
     }
   }
-  const T* h_last = h_s + (depth - 1) * layer;
+  const float* h_last = h_s + (depth - 1) * layer;
   if (has_bn) {
     float* dw = reinterpret_cast<float*>(gptrs[2 * depth]);
     float* db = reinterpret_cast<float*>(gptrs[2 * depth + 1]);
     add(h_last, nullptr, bbar, nullptr, WIDTH, WIDTH, WIDTH, WIDTH, dw, WIDTH,
-        db, mode);
+        db);
   }
   {
-    // h_L^T [sigma_bar, n_bar] + tau_L^T e0: tau_L's sum stays f32.
+    // h_L^T [sigma_bar, n_bar] + tau_L^T e0.
     float* dw = reinterpret_cast<float*>(gptrs[2 * depth + 2]);
     float* db = reinterpret_cast<float*>(gptrs[2 * depth + 3]);
-    add(h_last, tau_last, head_cot, e0, WIDTH, HCMAX, WIDTH, hcu, dw, hc, db,
-        kHalf ? 2 : 0);
+    add(h_last, tau_last, head_cot, e0, WIDTH, HCMAX, WIDTH, hcu, dw, hc, db);
   }
   if (off != per_split) return static_cast<int>(cudaErrorInvalidValue);
   wp.n = n;
@@ -486,12 +411,13 @@ int launch_bwd(const float* feat, const float* head_cot, const float* tbar,
   wp.per_split = off;
   wp.partials = partials;
 
-  const int smem = sweep_smem_bytes<T>(depth);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int smem = sweep_smem_bytes(depth);
   cudaError_t err = cudaFuncSetAttribute(
-      trunk_bwd_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      trunk_bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  trunk_bwd_sweep_kernel<T><<<(n + TM - 1) / TM, NT, smem, st>>>(
+  trunk_bwd_sweep_kernel<<<(n + TM - 1) / TM, NT, smem, st>>>(
       feat, head_cot, tbar, bbar, gbar, n, d, ldx, depth, skip_bits, hc, hcu,
       has_bn, bp, xbar, h_s, tau_s, tau_last, c1_s, cg_s);
   err = cudaGetLastError();
@@ -506,45 +432,4 @@ int launch_bwd(const float* feat, const float* head_cot, const float* tbar,
   trunk_wgrad_reduce_kernel<<<static_cast<unsigned>((off + 255) / 256), 256, 0,
                               st>>>(wp, splits);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// wptrs: five per layer (wf_h, wf_x, wr_h, wr_x, bias; 0 where unused; wr_x
-// zero-padded to NW = 64 columns), then head_w, wa_t, wb_t (0 without a
-// bottleneck). gptrs: (kernel grad, bias grad) per layer, then the
-// bottleneck's (0, 0 without one), then the head's. feat and gbar have rows
-// of D rounded up to 4 floats, head_cot and e0 rows of HCMAX = 8 floats
-// (zero past hcu; e0 is 1 in column 0). partials holds splits * per_split
-// floats. bf16 = 0: every weight f32, feat16 and gbar16 unused, scratch of
-// 4 * depth * N * 256 floats. bf16 = 1: every weight (not the biases) bf16,
-// feat16 and gbar16 bf16 copies of feat and G_bar with rows of ld16 = D
-// rounded up to 8, scratch of (2 * depth + 1) * N * 256 floats and
-// (2 * depth - 1) * N * 256 bf16 values.
-// Returns cudaGetLastError() of the launches.
-extern "C" int fused_trunk_bwd(const float* feat, const float* head_cot,
-                               const float* tbar, const float* bbar,
-                               const float* gbar, const void* feat16,
-                               const void* gbar16, const uint64_t* wptrs,
-                               const uint64_t* gptrs, const float* e0, int n,
-                               int d, int depth, unsigned skip_bits, int hc,
-                               int hcu, int has_bn, int bf16, int splits,
-                               long per_split, float* xbar, float* scratch,
-                               float* partials, void* stream) {
-  if (depth < 1 || depth > MAXD || d < 1 || d > DMAX || hc < 1 ||
-      hc > HCMAX || hcu < 1 || hcu > hc || n < 1 || splits < 1 ||
-      (skip_bits & 1u) || (has_bn && bbar == nullptr) ||
-      (bf16 && (feat16 == nullptr || gbar16 == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ld16 = (d + 7) & ~7;
-  if (bf16)
-    return launch_bwd<__nv_bfloat16>(
-        feat, head_cot, tbar, bbar, gbar, feat16, gbar16, ld16, wptrs, gptrs,
-        e0, n, d, depth, skip_bits, hc, hcu, has_bn, splits, per_split, xbar,
-        scratch, partials, st);
-  return launch_bwd<float>(feat, head_cot, tbar, bbar, gbar, nullptr, nullptr,
-                           ld16, wptrs, gptrs, e0, n, d, depth, skip_bits, hc,
-                           hcu, has_bn, splits, per_split, xbar, scratch,
-                           partials, st);
 }

@@ -1,5 +1,4 @@
-// NeRF trunk forward with dsigma/dfeat for Hopper (sm_90a), f32 in and out,
-// with f32 or bf16 operands.
+// NeRF trunk forward with dsigma/dfeat for Hopper (sm_90a), f32 in and out.
 //
 // Replaces the TPU kernel nerfds_tpu/pallas/fused_trunk.py:_fwd_kernel
 // (called by _pallas_forward). One launch computes, for every row of feat:
@@ -22,27 +21,16 @@
 // thread's 8 x 8 register tile does 64 FMAs per four shared loads. The
 // head, g and their weights (zero-padded to 64 columns by the wrapper) go
 // through the same ring with a 4 x 4 tile a thread. Sums run in k order
-// from the bias, in f32; no tensor cores.
-//
-// bf16-operand mode (the TPU kernel's compute_dtype = bf16): the weights
-// arrive in bf16 (the wrapper casts them; biases stay f32), and the tiles
-// hold bf16 where the TPU kernel casts to its compute dtype: feat, each
-// layer's relu output h, and each reverse-sweep cotangent c. The masks test
-// the f32 pre-activation, trunk_out is the last layer's unrounded f32 h,
-// and every product is widened to f32 and summed in f32, so the result is
-// the TPU kernel's up to summation order. The bound is the same count of
-// operations: on the CUDA cores this mode is no faster (the tensor-core
-// version is later work); its tiles and ring take half the bytes.
+// from the bias, in f32; no tensor cores. The bf16-operand mode runs on
+// the tensor cores instead: fused_trunk_fwd_bf16.cu.
 //
 // Shared memory a block (one block an SM, 8 warps):
-//                                    f32         bf16
-//   activation tile [256][68]      69,632 B    34,816 B
-//   input tile      [64][68]       17,408 B     8,704 B
-//   weight ring     3 x 16 x 256   49,152 B    24,576 B
-//   relu bits       depth x 2 KB   16,384 B at depth 8, 32,768 at 16
-//   total at depth 8              152,576 B    84,480 B
+//   activation tile [256][68] f32   69,632 B
+//   input tile      [64][68] f32    17,408 B
+//   weight ring     3 x 16 x 256    49,152 B
+//   relu bits       depth x 2 KB    16,384 B at depth 8, 32,768 at 16
+//   total                          152,576 B at depth 8, 168,960 at 16
 // of the 232,448 B a block may use.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,37 +40,32 @@ namespace {
 
 constexpr int MAXD = 16;       // deepest trunk supported
 
-// Weights in T (float or bf16), biases in f32.
-template <class T>
 struct TrunkParams {
-  const T* wf_h[MAXD];  // forward weight read by h ([D,256] at layer 0)
-  const T* wf_x[MAXD];  // forward weight read by feat at skip layers
-  const T* wr_h[MAXD];  // reverse weight to h, [256 out, 256 in]
-  const T* wr_x[MAXD];  // reverse weight to feat, [256 out, NW]
+  const float* wf_h[MAXD];  // forward weight read by h ([D,256] at layer 0)
+  const float* wf_x[MAXD];  // forward weight read by feat at skip layers
+  const float* wr_h[MAXD];  // reverse weight to h, [256 out, 256 in]
+  const float* wr_x[MAXD];  // reverse weight to feat, [256 out, NW]
   const float* b[MAXD];
-  const T* head_w;      // [256, NW]: the head's hc columns, zero-padded
-  const float* head_b;  // [hc]
-  const T* bn_w;        // [256, 256] or null
-  const float* bn_b;    // [256] or null
+  const float* head_w;      // [256, NW]: the head's hc columns, zero-padded
+  const float* head_b;      // [hc]
+  const float* bn_w;        // [256, 256] or null
+  const float* bn_b;        // [256] or null
 };
 
-template <class T>
 __host__ __device__ constexpr int fwd_smem_bytes(int depth) {
-  return (TILE_FLOATS + XTILE_FLOATS + RING_FLOATS) * static_cast<int>(sizeof(T)) +
-         depth * MASK_BYTES;
+  return (TILE_FLOATS + XTILE_FLOATS + RING_FLOATS) * 4 + depth * MASK_BYTES;
 }
 
-template <class T>
 __global__ void __launch_bounds__(NT, 1) fused_trunk_fwd_kernel(
     const float* __restrict__ feat, int n, int d, int depth,
     unsigned skip_bits, int hc, int norm_dim, int has_bn,
-    const __grid_constant__ TrunkParams<T> p, float* __restrict__ sigma_out,
+    const __grid_constant__ TrunkParams p, float* __restrict__ sigma_out,
     float* __restrict__ norm_out, float* __restrict__ trunk_out,
     float* __restrict__ bn_out, float* __restrict__ g_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* hbuf = reinterpret_cast<T*>(smem);  // [WIDTH][LDA]
-  T* xbuf = hbuf + TILE_FLOATS;          // [DMAX][LDA]
-  T* ring = xbuf + XTILE_FLOATS;         // [STAGES][CHUNK]
+  float* hbuf = reinterpret_cast<float*>(smem);  // [WIDTH][LDA]
+  float* xbuf = hbuf + TILE_FLOATS;              // [DMAX][LDA]
+  float* ring = xbuf + XTILE_FLOATS;             // [STAGES][CHUNK]
   uint64_t* masks = reinterpret_cast<uint64_t*>(ring + RING_FLOATS);  // [depth][NT]
 
   const int t = threadIdx.x;
@@ -158,55 +141,41 @@ __global__ void __launch_bounds__(NT, 1) fused_trunk_fwd_kernel(
   store_narrow(g_out, row0, n, d, gacc);
 }
 
-template <class T>
-int launch_fwd(const float* feat, const uint64_t* ptrs, int n, int d,
-               int depth, unsigned skip_bits, int hc, int norm_dim,
-               int has_bn, float* sigma, float* norm, float* trunk,
-               float* bneck, float* g, cudaStream_t stream) {
-  TrunkParams<T> p = {};
-  for (int i = 0; i < depth; ++i) {
-    p.wf_h[i] = reinterpret_cast<const T*>(ptrs[5 * i]);
-    p.wf_x[i] = reinterpret_cast<const T*>(ptrs[5 * i + 1]);
-    p.wr_h[i] = reinterpret_cast<const T*>(ptrs[5 * i + 2]);
-    p.wr_x[i] = reinterpret_cast<const T*>(ptrs[5 * i + 3]);
-    p.b[i] = reinterpret_cast<const float*>(ptrs[5 * i + 4]);
-  }
-  p.head_w = reinterpret_cast<const T*>(ptrs[5 * depth]);
-  p.head_b = reinterpret_cast<const float*>(ptrs[5 * depth + 1]);
-  p.bn_w = reinterpret_cast<const T*>(ptrs[5 * depth + 2]);
-  p.bn_b = reinterpret_cast<const float*>(ptrs[5 * depth + 3]);
-
-  const int smem = fwd_smem_bytes<T>(depth);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_trunk_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + TM - 1) / TM;
-  fused_trunk_fwd_kernel<T><<<blocks, NT, smem, stream>>>(
-      feat, n, d, depth, skip_bits, hc, norm_dim, has_bn, p, sigma, norm,
-      trunk, bneck, g);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // ptrs: five per layer (wf_h, wf_x, wr_h, wr_x, bias; 0 where unused), then
 // head_w, head_b, bn_w, bn_b. wr_x and head_w are zero-padded to NW = 64
-// columns. bf16 = 1: every weight (not the biases) is bf16 and the operands
-// are rounded to bf16; 0: all f32. Returns cudaGetLastError() of the launch.
+// columns. Returns cudaGetLastError() of the launch.
 extern "C" int fused_trunk_fwd(const float* feat, const uint64_t* ptrs, int n,
                                int d, int depth, unsigned skip_bits, int hc,
-                               int norm_dim, int has_bn, int bf16,
-                               float* sigma, float* norm, float* trunk,
-                               float* bneck, float* g, void* stream) {
+                               int norm_dim, int has_bn, float* sigma,
+                               float* norm, float* trunk, float* bneck,
+                               float* g, void* stream) {
   if (depth < 1 || depth > MAXD || d < 1 || d > DMAX || hc < 1 ||
       hc > HCMAX || norm_dim < 0 || norm_dim >= hc || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_fwd<__nv_bfloat16>(feat, ptrs, n, d, depth, skip_bits, hc,
-                                     norm_dim, has_bn, sigma, norm, trunk,
-                                     bneck, g, st);
-  return launch_fwd<float>(feat, ptrs, n, d, depth, skip_bits, hc, norm_dim,
-                           has_bn, sigma, norm, trunk, bneck, g, st);
+  TrunkParams p = {};
+  for (int i = 0; i < depth; ++i) {
+    p.wf_h[i] = reinterpret_cast<const float*>(ptrs[5 * i]);
+    p.wf_x[i] = reinterpret_cast<const float*>(ptrs[5 * i + 1]);
+    p.wr_h[i] = reinterpret_cast<const float*>(ptrs[5 * i + 2]);
+    p.wr_x[i] = reinterpret_cast<const float*>(ptrs[5 * i + 3]);
+    p.b[i] = reinterpret_cast<const float*>(ptrs[5 * i + 4]);
+  }
+  p.head_w = reinterpret_cast<const float*>(ptrs[5 * depth]);
+  p.head_b = reinterpret_cast<const float*>(ptrs[5 * depth + 1]);
+  p.bn_w = reinterpret_cast<const float*>(ptrs[5 * depth + 2]);
+  p.bn_b = reinterpret_cast<const float*>(ptrs[5 * depth + 3]);
+
+  const int smem = fwd_smem_bytes(depth);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_trunk_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n + TM - 1) / TM;
+  fused_trunk_fwd_kernel<<<blocks, NT, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      feat, n, d, depth, skip_bits, hc, norm_dim, has_bn, p, sigma, norm,
+      trunk, bneck, g);
+  return static_cast<int>(cudaGetLastError());
 }

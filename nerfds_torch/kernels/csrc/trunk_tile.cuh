@@ -1,5 +1,6 @@
 // Row-tile engine shared by the NeRF trunk kernels (fused_trunk_fwd.cu,
-// fused_trunk_bwd.cu), f32 FMAs on the CUDA cores.
+// fused_trunk_bwd.cu), f32 on the CUDA cores. Their bf16-operand mode has
+// its own engine on the tensor cores, trunk_mma.cuh.
 //
 // A block of NT = 256 threads owns TM = 64 rows. A layer's input lives in
 // shared memory as a k-major activation tile a[k * LDA + row] (a [K][LDA]
@@ -28,19 +29,11 @@
 // Relu masks are bits: a thread's 64 outputs of one layer are one uint64,
 // bit i * 8 + j for register row i and column j, so a layer's masks take
 // NT * 8 = 2 KB of shared memory and each thread reads back only its own.
-//
-// Element type T of the tiles and weights: float, or __nv_bfloat16 for the
-// trunk kernels' bf16-operand mode. With bf16 the activation tiles, the
-// weights and the ring hold bf16 (half the bytes: a 16-byte copy moves 8
-// weights), a value is rounded to bf16 where it is written to a tile
-// (put_tile, load_narrow_tile, store_rows), and each operand is widened to
-// f32 at the FMA: a product of two bf16 values is exact in f32, and sums
-// stay f32. The register tiles, the ring's chunk of KC rows and the loop
-// order are the same for both types.
 #pragma once
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "trunk_common.cuh"
 
 namespace {
 
@@ -60,123 +53,52 @@ constexpr int XTILE_FLOATS = DMAX * LDA;  // one [DMAX][LDA] input tile
 constexpr int RING_FLOATS = STAGES * CHUNK;
 constexpr int MASK_BYTES = NT * 8;        // one layer's relu bits
 
-// Four consecutive elements as floats, and back (rounded to nearest even).
+// Four consecutive elements as floats, and back.
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float bf16_bits_to_float(unsigned bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(bf16_bits_to_float(u.x & 0xffffu),
-                     bf16_bits_to_float(u.x >> 16),
-                     bf16_bits_to_float(u.y & 0xffffu),
-                     bf16_bits_to_float(u.y >> 16));
 }
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
-}
-// One element: read as a float (through the read-only cache), and a float
-// rounded to T.
+// One element, read through the read-only cache.
 __device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg_f(const __nv_bfloat16* p) {
-  return bf16_bits_to_float(
-      __ldg(reinterpret_cast<const unsigned short*>(p)));
-}
-template <class T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
-// x rounded to T and widened back.
-template <class T> __device__ __forceinline__ float round_to(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Runs nchunks chunks through the ring: load(stage, c) issues the copies of
-// chunk c, compute(stage, c) consumes it. Entry needs the ring free (every
-// run_ring ends with a barrier); the first barrier inside also publishes
-// what the threads wrote to the activation tiles before the call.
-template <class T, class Load, class Compute>
-__device__ __forceinline__ void run_ring(T* ring, int nchunks, Load load,
+// Runs nchunks chunks through the ring (trunk_common.cuh's ring_pipeline).
+template <class Load, class Compute>
+__device__ __forceinline__ void run_ring(float* ring, int nchunks, Load load,
                                          Compute compute) {
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nchunks) load(ring + s * CHUNK, s);
-    cp_async_commit();
-  }
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk c landed
-    __syncthreads();              // everyone's landed; chunk c-1 is consumed
-    const int next = c + STAGES - 1;
-    if (next < nchunks) load(ring + (next % STAGES) * CHUNK, next);
-    cp_async_commit();
-    compute(ring + (c % STAGES) * CHUNK, c);
-  }
-  __syncthreads();
+  ring_pipeline<STAGES, CHUNK>(ring, nchunks, load, compute);
 }
 
 // Rows [k0, k0 + KC) of a row-major [k_dim][256] weight; rows past k_dim are
 // zero-filled.
-template <class T>
-__device__ __forceinline__ void stage_wide(T* st, const T* __restrict__ w,
+__device__ __forceinline__ void stage_wide(float* st,
+                                           const float* __restrict__ w,
                                            int k0, int k_dim) {
-  constexpr int EPP = 16 / sizeof(T);  // elements a 16-byte piece
+  constexpr int EPP = 16 / sizeof(float);  // elements a 16-byte piece
   constexpr int PER_ROW = WIDTH / EPP;
 #pragma unroll
   for (int q = 0; q < CHUNK / EPP / NT; ++q) {
     const int e = threadIdx.x + q * NT;  // 16-byte piece of the chunk
     const int kk = e / PER_ROW, c = (e % PER_ROW) * EPP;
     const int k = k0 + kk;
-    const T* src = w + static_cast<size_t>(min(k, k_dim - 1)) * WIDTH + c;
+    const float* src = w + static_cast<size_t>(min(k, k_dim - 1)) * WIDTH + c;
     cp_async16(st + kk * WIDTH + c, src, k < k_dim ? 16 : 0);
   }
 }
 
 // Rows [k0, k0 + KCN) of a row-major [k_dim][NW] weight, zero past k_dim.
-template <class T>
-__device__ __forceinline__ void stage_narrow(T* st, const T* __restrict__ w,
+__device__ __forceinline__ void stage_narrow(float* st,
+                                             const float* __restrict__ w,
                                              int k0, int k_dim) {
-  constexpr int EPP = 16 / sizeof(T);
+  constexpr int EPP = 16 / sizeof(float);
   constexpr int PER_ROW = NW / EPP;
 #pragma unroll
   for (int q = 0; q < CHUNK / EPP / NT; ++q) {
     const int e = threadIdx.x + q * NT;
     const int kk = e / PER_ROW, c = (e % PER_ROW) * EPP;
     const int k = k0 + kk;
-    const T* src = w + static_cast<size_t>(min(k, k_dim - 1)) * NW + c;
+    const float* src = w + static_cast<size_t>(min(k, k_dim - 1)) * NW + c;
     cp_async16(st + kk * NW + c, src, k < k_dim ? 16 : 0);
   }
 }
@@ -203,16 +125,16 @@ __device__ __forceinline__ void fma_8x8(float (&acc)[8][8], const float4 a0,
 // acc += A[:, 0:k_dim] @ W[0:k_dim, :], summed in k order. A is a k-major
 // tile whose rows up to k_dim rounded up to KC are finite (zero past
 // k_dim); W is [k_dim][256] in device memory.
-template <class T>
-__device__ __forceinline__ void mm_wide(float (&acc)[8][8], const T* a,
-                                        int k_dim, const T* __restrict__ w,
-                                        T* ring) {
+__device__ __forceinline__ void mm_wide(float (&acc)[8][8], const float* a,
+                                        int k_dim,
+                                        const float* __restrict__ w,
+                                        float* ring) {
   const int r0 = row_base(), c0 = col_base();
   run_ring(
       ring, (k_dim + KC - 1) / KC,
-      [&](T* st, int c) { stage_wide(st, w, c * KC, k_dim); },
-      [&](const T* st, int c) {
-        const T* ak = a + c * KC * LDA + r0;
+      [&](float* st, int c) { stage_wide(st, w, c * KC, k_dim); },
+      [&](const float* st, int c) {
+        const float* ak = a + c * KC * LDA + r0;
 #pragma unroll
         for (int kk = 0; kk < KC; ++kk) {
           const float4 a0 = ld4(ak + kk * LDA);
@@ -227,16 +149,16 @@ __device__ __forceinline__ void mm_wide(float (&acc)[8][8], const T* a,
 // acc[4][4] += A[:, 0:k_dim] @ W[0:k_dim, 0:NW] for a narrow weight
 // zero-padded to NW columns. Thread t: rows (t / 16) * 4 + {0..3}, columns
 // (t % 16) * 4 + {0..3}.
-template <class T>
-__device__ __forceinline__ void mm_narrow(float (&acc)[4][4], const T* a,
-                                          int k_dim, const T* __restrict__ w,
-                                          T* ring) {
+__device__ __forceinline__ void mm_narrow(float (&acc)[4][4], const float* a,
+                                          int k_dim,
+                                          const float* __restrict__ w,
+                                          float* ring) {
   const int r0 = (threadIdx.x >> 4) * 4, c0 = (threadIdx.x & 15) * 4;
   run_ring(
       ring, (k_dim + KCN - 1) / KCN,
-      [&](T* st, int c) { stage_narrow(st, w, c * KCN, k_dim); },
-      [&](const T* st, int c) {
-        const T* ak = a + c * KCN * LDA + r0;
+      [&](float* st, int c) { stage_narrow(st, w, c * KCN, k_dim); },
+      [&](const float* st, int c) {
+        const float* ak = a + c * KCN * LDA + r0;
 #pragma unroll 16
         for (int kk = 0; kk < KCN; ++kk) {
           const float4 a4 = ld4(ak + kk * LDA);
@@ -267,9 +189,8 @@ __device__ __forceinline__ void fill_tile(float (&v)[8][8], float x) {
 }
 
 // v[i][j] = vec[column j] for every row (a bias, or the w_sigma seed).
-template <class V>
 __device__ __forceinline__ void fill_columns(float (&v)[8][8],
-                                             const V* __restrict__ vec,
+                                             const float* __restrict__ vec,
                                              int stride) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -281,13 +202,12 @@ __device__ __forceinline__ void fill_columns(float (&v)[8][8],
 
 // Writes the thread's registers into a k-major [256][LDA] tile (column c of
 // the layer output is row c of the next layer's input).
-template <class T>
-__device__ __forceinline__ void put_tile(T* __restrict__ buf,
+__device__ __forceinline__ void put_tile(float* __restrict__ buf,
                                          const float (&v)[8][8]) {
   const int r0 = row_base();
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    T* p = buf + tile_col(j) * LDA + r0;
+    float* p = buf + tile_col(j) * LDA + r0;
     st4(p, make_float4(v[0][j], v[1][j], v[2][j], v[3][j]));
     st4(p + 16, make_float4(v[4][j], v[5][j], v[6][j], v[7][j]));
   }
@@ -295,15 +215,14 @@ __device__ __forceinline__ void put_tile(T* __restrict__ buf,
 
 // Stores the thread's registers to rows row0 + .. of a row-major [N][256]
 // matrix, skipping rows past n.
-template <class T>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, int row0,
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, int row0,
                                            int n, const float (&v)[8][8]) {
   const int c0 = col_base();
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int gr = row0 + tile_row(i);
     if (gr < n) {
-      T* p = dst + static_cast<size_t>(gr) * WIDTH + c0;
+      float* p = dst + static_cast<size_t>(gr) * WIDTH + c0;
       st4(p, make_float4(v[i][0], v[i][1], v[i][2], v[i][3]));
       st4(p + 32, make_float4(v[i][4], v[i][5], v[i][6], v[i][7]));
     }
@@ -329,16 +248,14 @@ __device__ __forceinline__ void load_rows(float (&v)[8][8],
   }
 }
 
-// Relu in place; returns the thread's mask bits (bit i * 8 + j: v[i][j] > 0,
-// tested on v[i][j] rounded to M: the mask of a stored T activation).
-template <class M = float>
+// Relu in place; returns the thread's mask bits (bit i * 8 + j: v[i][j] > 0).
 __device__ __forceinline__ uint64_t relu_bits(float (&v)[8][8]) {
   uint64_t bits = 0ull;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const bool on = round_to<M>(v[i][j]) > 0.0f;
+      const bool on = v[i][j] > 0.0f;
       bits |= static_cast<uint64_t>(on) << (i * 8 + j);
       v[i][j] = on ? v[i][j] : 0.0f;
     }
@@ -355,19 +272,17 @@ __device__ __forceinline__ void apply_bits(float (&v)[8][8], uint64_t bits) {
 }
 
 // A k-major [DMAX][LDA] tile of rows row0 .. row0 + TM of a row-major
-// [N][ld] matrix's first d columns, rounded to T; zero past n and for
-// k >= d.
-template <class T>
-__device__ __forceinline__ void load_narrow_tile(T* __restrict__ buf,
+// [N][ld] matrix's first d columns; zero past n and for k >= d.
+__device__ __forceinline__ void load_narrow_tile(float* __restrict__ buf,
                                                  const float* __restrict__ src,
                                                  int ld, int d, int kmax,
                                                  int row0, int n) {
   for (int e = threadIdx.x; e < TM * kmax; e += NT) {
     const int r = e / kmax, c = e - r * kmax;
     const int gr = row0 + r;
-    buf[c * LDA + r] = from_f<T>(
+    buf[c * LDA + r] =
         (gr < n && c < d) ? __ldg(src + static_cast<size_t>(gr) * ld + c)
-                          : 0.0f);
+                          : 0.0f;
   }
 }
 

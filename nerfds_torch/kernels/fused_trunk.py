@@ -6,10 +6,12 @@ returns σ, the predicted normal, the trunk output, the bottleneck and
 g = ∂σ/∂feat, so the per-point ∇σ is the feature path's pullback of g
 (``models/nerfds.py``, ``sigma_gradient_mode='fused'``).
 
-* K1f, ``csrc/fused_trunk_fwd.cu``; plain version
-  ``trunk_sigma_grad_reference``: a forward that keeps the relu masks, then
-  the reverse sweep seeded with the σ column of the head.
-* K1b, ``csrc/fused_trunk_bwd.cu``; plain version
+* K1f, ``csrc/fused_trunk_fwd.cu`` (``csrc/fused_trunk_fwd_bf16.cu`` in
+  bf16); plain version ``trunk_sigma_grad_reference``: a forward that keeps
+  the relu masks, then the reverse sweep seeded with the σ column of the
+  head.
+* K1b, ``csrc/fused_trunk_bwd.cu`` (``csrc/fused_trunk_bwd_bf16.cu`` in
+  bf16); plain version
   ``trunk_sigma_grad_backward_reference``: given the cotangents
   (σ̄, n̄, T̄, B̄, Ḡ) it returns feat̄ and every weight and bias grad,
   including the second-order terms of Ḡ·g. Because relu'' = 0 a.e., g is
@@ -34,7 +36,10 @@ rounded h), the tangent sweep τ as it is stored and re-read, and every
 cotangent where it enters a product (c, c₁, c_g, the head cotangent, B̄).
 Sums the JAX kernel takes in f32 stay f32 (the bias grads; the σ column's
 Σ τ_L), and so do the outputs: trunk_out is the last layer's unrounded h.
-Inputs and outputs are float32 in both modes.
+Inputs and outputs are float32 in both modes. The float32 kernels run on
+the CUDA cores (``csrc/trunk_tile.cuh``), the bf16 ones on the tensor cores
+(``csrc/trunk_mma.cuh``), which take every weight as the B operand of the
+product, transposed: [out, in].
 """
 from __future__ import annotations
 
@@ -47,8 +52,8 @@ import torch
 from nerfds_torch import kernels
 from nerfds_torch.kernels import build
 
-# Limits compiled into csrc/trunk_tile.cuh, csrc/fused_trunk_fwd.cu and
-# csrc/fused_trunk_bwd.cu (tests/test_torch_kernels.py reads them there).
+# Limits compiled into csrc/trunk_tile.cuh, csrc/trunk_mma.cuh and the
+# trunk kernels beside them (tests/test_torch_kernels.py reads them there).
 KERNEL_TILE_ROWS = 64      # rows a block of either kernel owns (TM)
 KERNEL_WIDTH = 256
 KERNEL_MAX_IN_DIM = 64
@@ -658,18 +663,42 @@ def _layer_operands(weights: TrunkWeights, spec: TrunkSpec,
 
 
 def _head_operands(weights: TrunkWeights, compute_dtype=None):
-  """K1f's head and bottleneck operands: (head kernel zero-padded to
-  ``KERNEL_NARROW_WIDTH`` columns, head bias, bottleneck kernel, its bias;
-  None without a bottleneck). Kernels in the compute dtype, biases f32."""
-  wdt = _weight_dtype(compute_dtype)
+  """K1f's head and bottleneck operands: (head kernel, head bias, bottleneck
+  kernel, its bias; None without a bottleneck), biases float32. float32:
+  the head [W, hc] zero-padded to ``KERNEL_NARROW_WIDTH`` columns and the
+  bottleneck [in, out]. bf16: both transposed, the head to
+  [``KERNEL_MAX_HEAD``, W] with zero rows past hc."""
   head_w, head_b = weights.head
-  head_w = kernels.pad_columns(head_w.contiguous(),
-                               KERNEL_NARROW_WIDTH).to(wdt)
   bn_w, bn_b = (weights.bottleneck if weights.bottleneck is not None
                 else (None, None))
-  return (head_w, head_b.contiguous(),
+  if compute_dtype == torch.bfloat16:
+    head_w = kernels.pad_columns(head_w, KERNEL_MAX_HEAD).T
+    bn_w = bn_w.T if bn_w is not None else None
+  else:
+    head_w = kernels.pad_columns(head_w.contiguous(), KERNEL_NARROW_WIDTH)
+  wdt = _weight_dtype(compute_dtype)
+  return (head_w.to(wdt).contiguous(), head_b.contiguous(),
           bn_w.to(wdt).contiguous() if bn_w is not None else None,
           bn_b.contiguous() if bn_b is not None else None)
+
+
+def _bwd_head_operands(weights: TrunkWeights, spec: TrunkSpec,
+                       compute_dtype=None):
+  """K1b's head and bottleneck operands for the seed of r: float32, the
+  head [W, hc], its used columns transposed [hcu, W] and the bottleneck
+  transposed [out, in] (None without one); bf16, the head zero-padded to
+  [W, ``KERNEL_MAX_HEAD``] and the bottleneck [in, out], which the tensor
+  cores take as they are."""
+  hcu = spec.alpha_channels + spec.norm_dim
+  head_w = weights.head[0]
+  bn_w = weights.bottleneck[0] if spec.has_bottleneck else None
+  if compute_dtype == torch.bfloat16:
+    ops = (kernels.pad_columns(head_w, KERNEL_MAX_HEAD), bn_w)
+  else:
+    ops = (head_w, head_w[:, :hcu].T, bn_w.T if bn_w is not None else None)
+  wdt = _weight_dtype(compute_dtype)
+  return tuple(t.to(wdt).contiguous() if t is not None else None
+               for t in ops)
 
 
 def _check_aligned(tensors):
@@ -707,16 +736,21 @@ def _launch(feat: torch.Tensor, weights: TrunkWeights, spec: TrunkSpec,
     return sigma, norm, trunk, bneck, g
   skip_bits = sum(1 << i for i in spec.skips)
   ptr_array = (ctypes.c_uint64 * len(ptrs))(*ptrs)
-  lib = build.load_library()
+  name = _count_name('fused_trunk_fwd', compute_dtype)
+  launch = getattr(build.load_library(), name)
+  # bf16: the L1 norms of the weights' rows, which the entry computes (the
+  # window of the sums it takes again in order; see _launch_backward).
+  l1 = (new(3 * spec.depth * spec.width) if compute_dtype == torch.bfloat16
+        else None)
+  extra = (l1.data_ptr(),) if l1 is not None else ()
   with torch.cuda.device(feat.device):
-    rc = lib.fused_trunk_fwd(
+    rc = launch(
         feat.data_ptr(), ptr_array, n, d, spec.depth, skip_bits, hc,
-        spec.norm_dim, int(spec.has_bottleneck),
-        int(compute_dtype == torch.bfloat16), sigma.data_ptr(),
+        spec.norm_dim, int(spec.has_bottleneck), sigma.data_ptr(),
         norm.data_ptr() if norm is not None else 0, trunk.data_ptr(),
-        bneck.data_ptr(), g.data_ptr(), _stream(feat.device))
-  build.check(rc, 'fused_trunk_fwd')
-  kernels.launch_counts[_count_name('fused_trunk_fwd', compute_dtype)] += 1
+        bneck.data_ptr(), g.data_ptr(), *extra, _stream(feat.device))
+  build.check(rc, name)
+  kernels.launch_counts[name] += 1
   return sigma, norm, trunk, bneck, g
 
 
@@ -746,9 +780,7 @@ def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
   then the weight-grad reduction in a fixed order. ``operands`` as for
   ``_launch``."""
   bf16 = compute_dtype == torch.bfloat16
-  wdt = _weight_dtype(compute_dtype)
-  head_w = weights.head[0].to(wdt).contiguous()
-  hc = head_w.shape[1]
+  hc = weights.head[0].shape[1]
   _check_kernel_limits(spec, hc)
   if spec.depth > KERNEL_BWD_MAX_DEPTH:
     raise ValueError(f'the CUDA trunk backward takes depth <= '
@@ -773,13 +805,10 @@ def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
   bbar = bbar.contiguous() if spec.has_bottleneck else None
   layers, ptrs = operands or _layer_operands(weights, spec, compute_dtype)
   ptrs = list(ptrs)
-  # Transposed head (its used columns) and bottleneck for the seed of r.
-  wa_t = head_w[:, :hcu].T.contiguous()
-  wb_t = (weights.bottleneck[0].T.to(wdt).contiguous() if spec.has_bottleneck
-          else None)
-  for t in (head_w, wa_t, wb_t):
+  head = _bwd_head_operands(weights, spec, compute_dtype)
+  for t in head:
     ptrs.append(t.data_ptr() if t is not None else 0)
-  _check_aligned([*(t for layer in layers for t in layer), head_w, wa_t, wb_t,
+  _check_aligned([*(t for layer in layers for t in layer), *head,
                   feat_k, head_cot, tbar, bbar, gbar_k, feat16, gbar16])
 
   zeros = lambda t: torch.zeros_like(t, memory_format=torch.contiguous_format)
@@ -801,9 +830,6 @@ def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
     per_split += sum(t.numel() for t in weights.bottleneck)
   per_split += (spec.width + 1) * hcu
   splits = backward_splits(n)
-  # e0: the unit column that adds Σ_rows τ_L into the σ column of the head.
-  e0 = torch.zeros(n, KERNEL_MAX_HEAD, device=dev, dtype=torch.float32)
-  e0[:, 0] = 1.0
   # Device-memory scratch of the sweeps: h_i, τ_i, c1_i and c_g,i for every
   # layer (2.1 GB at depth 8, N = 65,536 in float32; 1.6 GB in bf16).
   scratch = torch.empty(backward_scratch_floats(n, spec.depth, compute_dtype),
@@ -813,18 +839,32 @@ def _launch_backward(feat: torch.Tensor, weights: TrunkWeights,
   skip_bits = sum(1 << i for i in spec.skips)
   wptr_array = (ctypes.c_uint64 * len(ptrs))(*ptrs)
   gptr_array = (ctypes.c_uint64 * len(gptrs))(*gptrs)
+  name = _count_name('fused_trunk_bwd', compute_dtype)
   lib = build.load_library()
+  # bf16: Σ_rows τ_L joins the σ column of the head's grad as an f32 sum;
+  # float32: e0, a unit column, adds it through the weight-grad product.
+  if bf16:
+    inputs = (feat16.data_ptr(), gbar16.data_ptr(), wptr_array, gptr_array)
+    # The L1 norms of the weights' rows, which the entry computes: the
+    # window in which the sweep sums again in order a sum near its bf16
+    # rounding or its relu mask.
+    l1 = torch.empty((3 * spec.depth + 2) * spec.width, device=dev,
+                     dtype=torch.float32)
+    extra = (l1.data_ptr(),)
+  else:
+    e0 = torch.zeros(n, KERNEL_MAX_HEAD, device=dev, dtype=torch.float32)
+    e0[:, 0] = 1.0
+    inputs = (wptr_array, gptr_array, e0.data_ptr())
+    extra = ()
   with torch.cuda.device(dev):
-    rc = lib.fused_trunk_bwd(
+    rc = getattr(lib, name)(
         feat_k.data_ptr(), head_cot.data_ptr(), tbar.data_ptr(),
         bbar.data_ptr() if bbar is not None else 0, gbar_k.data_ptr(),
-        feat16.data_ptr() if bf16 else 0, gbar16.data_ptr() if bf16 else 0,
-        wptr_array, gptr_array, e0.data_ptr(), n, d, spec.depth, skip_bits,
-        hc, hcu, int(spec.has_bottleneck), int(bf16), splits, per_split,
-        xbar.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
-        _stream(dev))
-  build.check(rc, 'fused_trunk_bwd')
-  kernels.launch_counts[_count_name('fused_trunk_bwd', compute_dtype)] += 1
+        *inputs, n, d, spec.depth, skip_bits, hc, hcu,
+        int(spec.has_bottleneck), splits, per_split, xbar.data_ptr(),
+        scratch.data_ptr(), partials.data_ptr(), *extra, _stream(dev))
+  build.check(rc, name)
+  kernels.launch_counts[name] += 1
   return xbar, grads
 
 

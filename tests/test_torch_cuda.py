@@ -184,8 +184,9 @@ def test_fused_trunk_backward_kernel_at_tile_edges(cuda, n):
   check_trunk_backward(cuda, n, seed=n + 1)
 
 
-def check_trunk_bf16(cuda, n, seed):
-  """K1f and K1b with bf16 operands against their bf16 plain versions.
+def check_trunk_bf16(cuda, n, seed, norm_dim=3, has_bottleneck=True):
+  """K1f and K1b with bf16 operands (on the tensor cores) against their
+  bf16 plain versions.
 
   Both round the same values to bf16, but a float32 sum that lies within
   its rounding error of a bf16 rounding boundary or of a relu kink goes the
@@ -202,10 +203,10 @@ def check_trunk_bf16(cuda, n, seed):
   """
   bf16 = torch.bfloat16
   gen = torch.Generator().manual_seed(seed)
-  spec, weights = nerf_ds_trunk(cuda, gen)
+  spec, weights = nerf_ds_trunk(cuda, gen, norm_dim, has_bottleneck)
   feat = (torch.rand(n, 52, generator=gen) * 2 - 1).to(cuda)
   cots = tuple(torch.randn(n, c, generator=gen).to(cuda)
-               for c in (1, 3, 256, 256, 52))
+               for c in (1, norm_dim, 256, 256, 52))
   with torch.no_grad():
     launched = kernels.launch_counts['fused_trunk_fwd_bf16']
     got = tft.trunk_sigma_grad(feat, weights, spec, compute_dtype=bf16)
@@ -242,6 +243,16 @@ def check_trunk_bf16(cuda, n, seed):
 @pytest.mark.parametrize('n', (4099, *TILE_EDGES))
 def test_fused_trunk_bf16_kernels_match_plain_on_card(cuda, n):
   check_trunk_bf16(cuda, n, seed=n + 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('norm_dim,has_bottleneck', HEADS[1:])
+def test_fused_trunk_bf16_kernels_at_heads_on_card(cuda, norm_dim,
+                                                   has_bottleneck):
+  # The σ-only head, the trunk without a bottleneck, and both, at a ragged
+  # N, by the rule above.
+  check_trunk_bf16(cuda, 4099, seed=11, norm_dim=norm_dim,
+                   has_bottleneck=has_bottleneck)
 
 
 @pytest.mark.cuda

@@ -193,64 +193,134 @@ def test_fused_trunk_plain_bf16_matches_pallas(norm_dim, has_bottleneck):
     assert rel_to_scale(g, w) > 1e-3
 
 
-@pytest.mark.parametrize('compute_dtype', [None, torch.bfloat16])
-def test_fused_trunk_kernel_operands_give_the_plain_result(compute_dtype):
-  """K1f's arithmetic, emulated in torch on the operands the wrapper
-  builds for the kernel (forward weights and their transposes, the
-  reverse weights to feat and the head padded to 64 columns, weights in
-  the compute dtype and biases in float32), gives the plain version's
-  result: the layouts, dtypes and paddings handed to the kernel are
-  right."""
-  _, _, tm, tspec, feat = trunk_case(n=29, seed=8)
-  weights = tm.trunk_weights()
-  wdt = compute_dtype or torch.float32
+def emulate_trunk_kernels(feat, weights, spec, cots, compute_dtype):
+  """K1f's outputs and K1b's feat̄, computed in torch from the operands the
+  wrapper builds for the kernels, read as each engine reads them: the
+  float32 engine multiplies by [in, out] weights, the bf16 tensor-core
+  engine by [out, in] ones (the mma's B operand: out = A @ Bᵀ), with feat
+  zero-padded to the 64 columns of its K. Checks the operands' shapes,
+  dtypes and zero padding on the way."""
+  bf16 = compute_dtype == torch.bfloat16
+  wdt = torch.bfloat16 if bf16 else torch.float32
   rnd = lambda v: v.to(wdt).float()
-  layers, ptrs = tft._layer_operands(weights, tspec, compute_dtype)
+  f = lambda w: w.float()
+  layers, ptrs = tft._layer_operands(weights, spec, compute_dtype)
   head_w, head_b, bn_w, bn_b = tft._head_operands(weights, compute_dtype)
-  assert len(ptrs) == 5 * tspec.depth
+  bwd_head = tft._bwd_head_operands(weights, spec, compute_dtype)
+  hc = spec.alpha_channels + spec.norm_dim
+  narrow, max_head = tft.KERNEL_NARROW_WIDTH, tft.KERNEL_MAX_HEAD
+  assert len(ptrs) == 5 * spec.depth
   for i, (wf_h, wf_x, wr_h, wr_x, b) in enumerate(layers):
-    assert (wf_x is not None) == tspec.is_skip(i)
+    assert (wf_x is not None) == spec.is_skip(i)
     assert (wr_h is None) == (i == 0)
-    assert (wr_x is None) == (i > 0 and not tspec.is_skip(i))
+    assert (wr_x is None) == (i > 0 and not spec.is_skip(i))
     for op in (wf_h, wf_x, wr_h, wr_x):
       assert op is None or (op.dtype == wdt and op.is_contiguous())
     assert b.dtype == torch.float32
     if wr_x is not None:
-      assert wr_x.shape == (tspec.width, tft.KERNEL_NARROW_WIDTH)
-      assert not wr_x[:, tspec.in_dim:].any()
-  assert head_w.dtype == bn_w.dtype == wdt
-  assert head_w.shape == (tspec.width, tft.KERNEL_NARROW_WIDTH)
-  hc = tspec.alpha_channels + tspec.norm_dim
-  assert not head_w[:, hc:].any()
-  x = rnd(t(feat))
-  h, masks = x, []
-  for wf_h, wf_x, _, _, b in layers:
-    a = h @ wf_h.float()
+      assert wr_x.shape == (spec.width, narrow)
+      assert not wr_x[:, spec.in_dim:].any()
+  for op in (head_w, bn_w, *bwd_head):
+    assert op is None or (op.dtype == wdt and op.is_contiguous())
+  if bf16:
+    # Transposed for the tensor cores; the head's rows past hc are zero.
+    assert head_w.shape == (max_head, spec.width)
+    assert not head_w[hc:].any()
+    head_seed, bn_seed = bwd_head
+    assert head_seed.shape == (spec.width, max_head)
+    assert not head_seed[:, hc:].any()
+  else:
+    assert head_w.shape == (spec.width, narrow)
+    assert not head_w[:, hc:].any()
+    _, head_seed, bn_seed = bwd_head
+    assert head_seed.shape == (hc, spec.width)
+  assert (bn_w is None) == (bn_seed is None) == (not spec.has_bottleneck)
+  # x @ (the weight from feat): wr_x [out, 64] in bf16, as its transpose
+  # [64, out] in float32 (wf_h[0] or wf_x, K = D).
+  x = rnd(kernels.pad_columns(feat, narrow))
+  from_x = lambda wf, wr: (x @ f(wr).T if bf16 else
+                           x[:, :spec.in_dim] @ f(wf))
+  # c @ (that weight)ᵀ, the reverse sweep's share of g or feat̄: wf_x (or
+  # wf_h[0]) [D, out] in bf16, wr_x [out, 64] cut to D in float32.
+  to_x = lambda c, wf, wr: (c @ f(wf).T if bf16 else
+                            (c @ f(wr))[:, :spec.in_dim])
+  # h @ W_h and r @ W_hᵀ of a layer > 0.
+  fwd_h = lambda h, wf_h, wr_h: h @ (f(wr_h).T if bf16 else f(wf_h))
+  rev_h = lambda c, wf_h, wr_h: c @ (f(wf_h).T if bf16 else f(wr_h))
+  # Products with the head and the bottleneck as K1f reads them.
+  out_of = lambda a, w: a @ (f(w).T if bf16 else f(w))
+  h, pre = x, []
+  for i, (wf_h, wf_x, wr_h, wr_x, b) in enumerate(layers):
+    a = from_x(wf_h, wr_x) if i == 0 else fwd_h(h, wf_h, wr_h)
     if wf_x is not None:
-      a = a + x @ wf_x.float()
+      a = a + from_x(wf_x, wr_x)
     a = a + b
-    masks.append(a > 0)
+    pre.append(a)
     h_f32 = torch.relu(a)
     h = rnd(h_f32)
-  head = h @ head_w.float()[:, :hc] + head_b[:hc]
-  bneck = h @ bn_w.float() + bn_b
-  r = head_w[:, 0].float().expand(len(feat), tspec.width)
-  g = 0.0
-  for i in range(tspec.depth - 1, -1, -1):
-    _, _, wr_h, wr_x, _ = layers[i]
-    c = rnd(r * masks[i])
-    if wr_x is not None:
-      g = g + (c @ wr_x.float())[:, :tspec.in_dim]
-    if wr_h is not None:
-      r = c @ wr_h.float()
-  emulated = (head[:, :1], head[:, 1:hc], h_f32, bneck, g)
-  with torch.no_grad():
-    want = tft.trunk_sigma_grad_reference(t(feat), weights, tspec,
-                                          compute_dtype=compute_dtype)
-  # Tolerance: float32; the emulation sums a skip layer's products and the
-  # reverse products over transposed copies, in another order.
-  for got, w in zip(emulated, want):
-    torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
+  head = out_of(h, head_w)[:, :hc] + head_b[:hc]
+  bneck = out_of(h, bn_w) + bn_b if bn_w is not None else h_f32
+
+  def sweep(r, masks):
+    out = 0.0
+    for i in range(spec.depth - 1, -1, -1):
+      wf_h, wf_x, wr_h, wr_x, _ = layers[i]
+      c = rnd(r * masks[i])
+      if wr_x is not None:
+        out = out + to_x(c, wf_h if i == 0 else wf_x, wr_x)
+      if wr_h is not None:
+        r = rev_h(c, wf_h, wr_h)
+    return out
+
+  seed = head_w[0] if bf16 else head_w[:, 0]
+  g = sweep(f(seed).expand(len(feat), spec.width), [a > 0 for a in pre])
+  fwd = (head[:, :1], head[:, 1:hc] if spec.norm_dim else None, h_f32,
+         bneck, g)
+  # K1b's feat̄: its masks test the stored h, its seed of r reads the head
+  # and bottleneck through the backward's own operands.
+  sbar, nbar, tbar, bbar, _ = cots
+  head_bar = torch.cat([sbar, nbar], -1) if spec.norm_dim else sbar
+  if bf16:
+    r = tbar + rnd(kernels.pad_columns(head_bar, max_head)) @ f(head_seed).T
+  else:
+    r = tbar + head_bar @ f(head_seed)
+  if bn_seed is not None:
+    r = r + rnd(bbar) @ (f(bn_seed).T if bf16 else f(bn_seed))
+  xbar = sweep(r, [rnd(torch.relu(a)) > 0 for a in pre])
+  return fwd, xbar
+
+
+@pytest.mark.parametrize('compute_dtype', [None, torch.bfloat16])
+def test_fused_trunk_kernel_operands_give_the_plain_result(compute_dtype):
+  """K1f's arithmetic and K1b's feat̄ sweep, emulated in torch on the
+  operands the wrapper builds for the kernels (forward weights and their
+  transposes, the reverse weights to feat and the heads padded, weights in
+  the compute dtype and biases in float32; in bf16 each weight in the
+  tensor cores' [out, in] layout and feat padded to K = 64), give the
+  plain version's result at every head shape: the layouts, dtypes and
+  paddings handed to the kernels are right."""
+  for norm_dim, has_bottleneck in ((3, True), (0, True), (3, False)):
+    _, _, tm, tspec, feat = trunk_case(n=29, norm_dim=norm_dim,
+                                       has_bottleneck=has_bottleneck, seed=8)
+    weights = tm.trunk_weights()
+    cots = to_port_cots(trunk_cotangents(tspec, len(feat), seed=9), tspec)
+    if not has_bottleneck:  # folded into T̄, as TrunkSigmaGrad does
+      cots = (*cots[:2], cots[2] + cots[3], torch.zeros_like(cots[3]),
+              cots[4])
+    emulated, xbar = emulate_trunk_kernels(t(feat), weights, tspec, cots,
+                                           compute_dtype)
+    with torch.no_grad():
+      want = tft.trunk_sigma_grad_reference(t(feat), weights, tspec,
+                                            compute_dtype=compute_dtype)
+      want_x, _ = tft.trunk_sigma_grad_backward_reference(
+          t(feat), weights, tspec, cots, compute_dtype=compute_dtype)
+    # Tolerance: float32; the emulation sums a skip layer's products and
+    # the reverse products over transposed copies, in another order.
+    for got, w in zip([*emulated, xbar], [*want, want_x]):
+      if w is None:
+        assert got is None
+        continue
+      torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
 
 
 def test_backward_scratch_sizes():
@@ -323,11 +393,130 @@ def test_trunk_kernel_constants_match_the_cuda_sources():
   bwd_bytes = 2 * act + ring + bits * tft.KERNEL_BWD_MAX_DEPTH
   assert fwd_bytes <= 232_448 and bwd_bytes <= 232_448, (fwd_bytes,
                                                          bwd_bytes)
+  # The bf16 kernels' tensor-core engine, trunk_mma.cuh, at the same limits.
+  mma = cuda_constants('trunk_mma.cuh')
+  fwd16 = cuda_constants('fused_trunk_fwd_bf16.cu')
+  bwd16 = cuda_constants('fused_trunk_bwd_bf16.cu')
+  assert mma['TM'] == tft.KERNEL_TILE_ROWS
+  assert mma['WIDTH'] == tft.KERNEL_WIDTH
+  assert mma['DMAX'] == tft.KERNEL_MAX_IN_DIM
+  assert mma['HCMAX'] == tft.KERNEL_MAX_HEAD
+  assert mma['NW'] == tft.KERNEL_NARROW_WIDTH
+  assert fwd16['MAXD'] == tft.KERNEL_MAX_DEPTH
+  assert bwd16['MAXD'] == tft.KERNEL_BWD_MAX_DEPTH
   # The backward's row splits depend on N alone, and cover every row.
   for n in (1, 2047, 2048, 4099, 32_768, 65_536, 10**6):
     splits = tft.backward_splits(n)
     assert 1 <= splits <= tft.KERNEL_BWD_MAX_SPLITS
     assert splits * -(-n // splits) >= n
+
+
+def test_bf16_trunk_kernels_shared_memory_fits():
+  """The bf16 trunk kernels' tensor-core engine (trunk_mma.cuh): its tiles
+  hold whole k16 steps, and a block's shared memory, computed from the
+  sources' constants at the deepest trunk each kernel takes (resum's row
+  maxima and lists included), fits the H100's 232,448 bytes (the weight
+  grads: two blocks an SM)."""
+  mma = cuda_constants('trunk_mma.cuh')
+  bwd16 = cuda_constants('fused_trunk_bwd_bf16.cu')
+  # An mma's K is 16: a wide chunk's k, the narrow input tile's columns
+  # (feat padded to DMAX) and a narrow product's k (WIDTH) are multiples.
+  for k in (mma['KC'], mma['DMAX'], mma['WIDTH'], bwd16['RB']):
+    assert k % 16 == 0, k
+  # Its layout in bf16 (2 bytes): [TM][WIDTH] activation tiles, [TM][DMAX]
+  # narrow input tiles, STAGES ring chunks of [WIDTH][KC] (wide) or
+  # [NW][WIDTH] (narrow), 2 KB of relu bits a layer.
+  assert mma['TILE'] == mma['TM'] * mma['WIDTH']
+  assert mma['XTILE'] == mma['TM'] * mma['DMAX']
+  assert mma['STAGE'] == mma['WIDTH'] * mma['KC'] == mma['NW'] * mma['WIDTH']
+  assert mma['MASK_BYTES'] == 8 * mma['NT']
+  ring16 = 2 * mma['STAGES'] * mma['STAGE']
+  fwd16_bytes = (2 * (mma['TILE'] + mma['XTILE']) + ring16
+                 + mma['MASK_BYTES'] * tft.KERNEL_MAX_DEPTH)
+  # The sweep: two activation tiles; feat, Ḡ and the head cotangent.
+  bwd16_bytes = (2 * (2 * mma['TILE'] + 3 * mma['XTILE']) + ring16
+                 + mma['MASK_BYTES'] * tft.KERNEL_BWD_MAX_DEPTH)
+  # The weight grads: a ring of [RB][TK] bf16 A, A2 and [RB][TJ] f32 C,
+  # C2; C and C2 in bf16; the sums of four row groups, two of them. Two
+  # blocks an SM, of its 228 KB less 1 KB each.
+  rb, tk, tj = bwd16['RB'], bwd16['TK'], bwd16['TJ']
+  wgrad16_bytes = (bwd16['WSTAGES'] * (2 * 2 * rb * tk + 2 * 4 * rb * tj)
+                   + 2 * 2 * rb * tj + 2 * 4 * 4 * tj)
+  # resum (the sums near a rounding or a mask taken again in k order): each
+  # tile's row maxima, four column groups' of TM rows (two tiles in K1f,
+  # five in K1b's sweep), and each warp's list of SEQ_CAP entries and
+  # results; the weight rows it sums with go to the ring, in eight warps'
+  # parts that hold a round's rows at the widest (a trunk row, a feat row
+  # and 16 bytes of padding each).
+  assert mma['RM'] == 4 * mma['TM']
+  lists = 8 * mma['SEQ_CAP'] * (4 + 4)
+  fwd16_bytes += 2 * 4 * mma['RM'] + lists
+  bwd16_bytes += 5 * 4 * mma['RM'] + lists
+  slice16 = mma['STAGES'] * mma['STAGE'] // 8
+  assert slice16 // (mma['WIDTH'] + mma['NW'] + 8) >= 16
+  # resum's table of weight norms: three a layer (two more in K1b).
+  assert mma['L1MAX'] >= max(3 * tft.KERNEL_MAX_DEPTH,
+                             3 * tft.KERNEL_BWD_MAX_DEPTH + 2)
+  assert (fwd16_bytes, bwd16_bytes, wgrad16_bytes) == (178_176, 222_208,
+                                                       86_016)
+  assert max(fwd16_bytes, bwd16_bytes) <= 232_448
+  assert 2 * (wgrad16_bytes + 1024) <= 228 * 1024
+
+
+def _near_decision(x, delta):
+  """trunk_mma.cuh's near_decision: |x| <= delta, or |x| - delta and |x| +
+  delta round to different bf16 values (bits + half a step, 16 dropped)."""
+  ax = np.abs(x)
+  lo = (ax - delta).astype(np.float32).view(np.uint32).astype(np.int64)
+  hi = (ax + delta).astype(np.float32).view(np.uint32).astype(np.int64)
+  return (ax <= delta) | (((lo + 0x8000) >> 16) != ((hi + 0x8000) >> 16))
+
+
+def test_resum_rule_rounds_as_the_in_order_sum():
+  """The bf16 kernels' rule for their rounding decisions (trunk_mma.cuh's
+  resum), on the CPU: sums taken in another order (k16 partials, each
+  truncated toward zero as a tensor core may, added in float32) and then
+  summed again in k order wherever near_decision flags them within
+  SEQ_WINDOW * 2^-24 * M (M: the row's largest |a| times the largest L1
+  norm of the weight's columns, plus |bias|) make every relu mask and
+  bf16 rounding fall as the in-order float32 sum (the plain version's on
+  the card) makes it fall; without the second sums some fall otherwise."""
+  window = cuda_constants('trunk_mma.cuh')['SEQ_WINDOW']
+  rng = np.random.RandomState(0)
+  bf = lambda t: torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(
+      torch.bfloat16).float().numpy()
+  a = bf(np.maximum(rng.randn(256, 256), 0.0))  # relu'd activations
+  w = bf(rng.randn(256, 256) / 16.0)
+  b = rng.randn(256).astype(np.float32) * 0.1
+  prod = a[:, :, None].astype(np.float32) * w[None, :, :]  # exact in f32
+  in_order = np.zeros((256, 256), np.float32)
+  for k in range(256):
+    in_order = (in_order + prod[:, k, :]).astype(np.float32)
+  in_order = (in_order + b).astype(np.float32)
+  other = np.zeros((256, 256), np.float32)
+  for k0 in range(0, 256, 16):
+    part = prod[:, k0:k0 + 16, :].astype(np.float64).sum(1)
+    near32 = part.astype(np.float32)
+    part = np.where(np.abs(near32.astype(np.float64)) > np.abs(part),
+                    np.nextafter(near32, np.float32(0)), near32)
+    other = (other + part).astype(np.float32)
+  other = (other + b).astype(np.float32)
+  m = (np.abs(a).max(1, keepdims=True) * np.abs(w).sum(0).max()
+       + np.abs(b).max()).astype(np.float32)
+  delta = (m * np.float32(window * 2.0**-24)).astype(np.float32)
+  decide = lambda v: (v > 0, bf(np.maximum(v, 0.0)))
+  mask_want, h_want = decide(in_order)
+  mask_tc, h_tc = decide(other)
+  moved = (mask_tc != mask_want) | (h_tc != h_want)
+  assert moved.sum() > 0
+  near = (other > -delta) & _near_decision(other, delta)
+  fixed = np.where(near, in_order, other)
+  mask_got, h_got = decide(fixed)
+  assert (mask_got == mask_want).all() and (h_got == h_want).all()
+  # The window holds the two orders' difference with room to spare, and
+  # flags few sums.
+  assert np.abs(other - in_order).max() < delta.min()
+  assert near.mean() < 0.05, near.mean()
 
 
 def trunk_cotangents(spec, n, seed, only_gbar=False):
