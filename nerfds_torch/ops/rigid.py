@@ -43,7 +43,10 @@ def screw_from_raw(w_raw: torch.Tensor, v_raw: torch.Tensor,
 
 
 def _cross(a, b):
-  return torch.linalg.cross(a, b, dim=-1)
+  """a × b in the wider of the two dtypes, as ``jnp.cross`` promotes (the
+  warp's float32 screw against float64 points)."""
+  dtype = torch.promote_types(a.dtype, b.dtype)
+  return torch.linalg.cross(a.to(dtype), b.to(dtype), dim=-1)
 
 
 def rotate(screw, x: torch.Tensor) -> torch.Tensor:

@@ -111,6 +111,24 @@ def test_screw_functions():
   close(trigid.rotate_inverse(ts, trigid.rotate(ts, t(x))), x, atol=1e-5)
 
 
+def test_screw_applied_to_float64_points_promotes_as_jax():
+  """A float32 screw (the warp fields cast theirs) applied to float64
+  points: JAX promotes to float64, and so must the port
+  (``torch.linalg.cross`` itself does not promote)."""
+  w_raw, v_raw, x = _screw_inputs()
+  ts = trigid.screw_from_raw(t(w_raw).float(), t(v_raw).float())
+  with jax.enable_x64(True):
+    js = jrigid.screw_from_raw(jnp.asarray(w_raw, jnp.float32),
+                               jnp.asarray(v_raw, jnp.float32))
+    x64 = np.asarray(x, np.float64)
+    for fn in (jrigid.rotate, jrigid.rotate_inverse,
+               jrigid.transform_point, jrigid.transform_point_inverse):
+      want = np.asarray(fn(js, jnp.asarray(x64)))
+      got = getattr(trigid, fn.__name__)(ts, t(x64))
+      assert want.dtype == np.float64 and got.dtype == torch.float64
+      close(got, want, atol=1e-6)
+
+
 def test_screw_zero_row_and_gradients():
   """θ = ‖w_raw‖: an exact-zero row gives the identity in both packages,
   but the gradient of the norm there differs (torch 0, JAX NaN), so the
