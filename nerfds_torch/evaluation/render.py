@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from nerfds_torch import tracing
 from nerfds_torch.models.nerfds import NerfDSModel
 from nerfds_torch.ops.sampling import RowShard
 from nerfds_torch.parallel import mesh as mesh_lib
@@ -93,59 +94,72 @@ def render_image(model: NerfDSModel, rays_dict: Dict[str, Any], extra_params,
   world size; each rank renders its rows of a chunk, drawing what one
   process rendering the whole chunk draws for those rows
   (``sampling.RowShard``), and the rows are gathered.
+
+  Under a profiler the image is a ``tracing`` span, ``nerfds.render.image``,
+  holding ``nerfds.render.encode`` (the rays put on the device and the
+  metadata encoded), one ``nerfds.render.chunk`` a chunk (unit: the chunk's
+  index), each with the model's spans and ``nerfds.render.to_host`` (the
+  outputs copied to the host, one wait for the card each), and
+  ``nerfds.render.assemble`` (the chunks' outputs joined on the host).
   """
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
-  if render_fn is None:
-    render_fn = make_render_fn(model)
-  if keys is None:
-    keys = DEFAULT_KEYS + (HYPER_C_KEYS if model.config.use_hyper_c else ())
-  device = model.device
+  with tracing.span('nerfds.render.image'):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if render_fn is None:
+      render_fn = make_render_fn(model)
+    if keys is None:
+      keys = DEFAULT_KEYS + (HYPER_C_KEYS if model.config.use_hyper_c else ())
+    device = model.device
 
-  rays_dict = dict(rays_dict)
-  metadata = rays_dict.pop('metadata', {})
-  batch_shape = tuple(rays_dict['origins'].shape[:-1])
-  num_rays = int(np.prod(batch_shape))
-  flat = {k: _tensor(v, device).reshape(num_rays, -1)
-          for k, v in rays_dict.items()}
-  with torch.no_grad():
-    encoded = model.encode_metadata({
-        k: _tensor(v, device).reshape(-1, v.shape[-1])[:1]
-        for k, v in metadata.items()})
-  level = level or ('fine' if model.config.num_fine_samples > 0 else 'coarse')
-  sharded = mesh is not None and mesh.world_size > 1
-  if sharded:
-    mesh_lib.check_batch_norm(model.config.norm_type, mesh)
-    chunk = mesh_lib.pad_to_multiple(chunk, mesh.world_size)
-    per = chunk // mesh.world_size
-    generator = RowShard(generator, chunk, mesh.rank * per,
-                         (mesh.rank + 1) * per)
-
-  outs = []
-  for start in range(0, num_rays, chunk):
-    sl = {k: v[start:start + chunk] for k, v in flat.items()}
-    n = sl['origins'].shape[0]
-    pad = chunk - n
-    if pad:
-      sl = {k: torch.cat([v, v[-1:].expand(pad, -1)]) for k, v in sl.items()}
-    chunk_rays = {
-        'origins': sl['origins'],
-        'directions': sl['directions'],
-        'metadata': {k: v.expand(chunk, v.shape[-1])
-                     for k, v in encoded.items()},
-        'mask': sl['mask'] if 'mask' in sl else torch.zeros(
-            chunk, 1, device=device),
-    }
+    rays_dict = dict(rays_dict)
+    metadata = rays_dict.pop('metadata', {})
+    batch_shape = tuple(rays_dict['origins'].shape[:-1])
+    num_rays = int(np.prod(batch_shape))
+    with tracing.span('nerfds.render.encode'):
+      flat = {k: _tensor(v, device).reshape(num_rays, -1)
+              for k, v in rays_dict.items()}
+      with torch.no_grad():
+        encoded = model.encode_metadata({
+            k: _tensor(v, device).reshape(-1, v.shape[-1])[:1]
+            for k, v in metadata.items()})
+    level = level or ('fine' if model.config.num_fine_samples > 0 else 'coarse')
+    sharded = mesh is not None and mesh.world_size > 1
     if sharded:
-      chunk_rays = mesh_lib.shard_batch(chunk_rays, mesh)
-    out = render_fn(chunk_rays, extra_params, generator)[level]
-    out = {k: v for k, v in out.items() if k in keys}
-    if sharded:
-      out = _gather_rows(out, mesh)
-    outs.append({k: v[:n].cpu().numpy() for k, v in out.items()})
+      mesh_lib.check_batch_norm(model.config.norm_type, mesh)
+      chunk = mesh_lib.pad_to_multiple(chunk, mesh.world_size)
+      per = chunk // mesh.world_size
+      generator = RowShard(generator, chunk, mesh.rank * per,
+                           (mesh.rank + 1) * per)
 
-  result = {}
-  for k in outs[0]:
-    stacked = np.concatenate([o[k] for o in outs], axis=0)
-    result[k] = stacked.reshape((*batch_shape, *stacked.shape[1:]))
-  return result
+    outs = []
+    for index, start in enumerate(range(0, num_rays, chunk)):
+      with tracing.span('nerfds.render.chunk', unit=index):
+        sl = {k: v[start:start + chunk] for k, v in flat.items()}
+        n = sl['origins'].shape[0]
+        pad = chunk - n
+        if pad:
+          sl = {k: torch.cat([v, v[-1:].expand(pad, -1)])
+                for k, v in sl.items()}
+        chunk_rays = {
+            'origins': sl['origins'],
+            'directions': sl['directions'],
+            'metadata': {k: v.expand(chunk, v.shape[-1])
+                         for k, v in encoded.items()},
+            'mask': sl['mask'] if 'mask' in sl else torch.zeros(
+                chunk, 1, device=device),
+        }
+        if sharded:
+          chunk_rays = mesh_lib.shard_batch(chunk_rays, mesh)
+        out = render_fn(chunk_rays, extra_params, generator)[level]
+        out = {k: v for k, v in out.items() if k in keys}
+        if sharded:
+          out = _gather_rows(out, mesh)
+        with tracing.span('nerfds.render.to_host'):
+          outs.append({k: v[:n].cpu().numpy() for k, v in out.items()})
+
+    with tracing.span('nerfds.render.assemble'):
+      result = {}
+      for k in outs[0]:
+        stacked = np.concatenate([o[k] for o in outs], axis=0)
+        result[k] = stacked.reshape((*batch_shape, *stacked.shape[1:]))
+      return result

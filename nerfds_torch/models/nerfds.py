@@ -77,6 +77,15 @@ has no normal for the colour and fails. And where ∇σ is taken,
 ``remat_sigma`` recomputes σ together with its ∇σ ('jvp': the whole
 three-tangent push, whose tangents ``torch.utils.checkpoint`` cannot
 recompute alone); the numbers are those without remat.
+
+Under a profiler each level is a ``tracing`` span (``nerfds.model.coarse``,
+``.fine``) holding the spans of its parts: ``nerfds.model.sample``,
+``.mask``, ``.warp``, ``.hyper``, ``.trunk`` (the posencs of the canonical
+point, the trunk and its heads), ``.rgb`` (the radiance branch and its
+conditions) and ``.composite`` (compositing, depth and normal maps). A
+part that one call does with another is named after the larger: ∇σ's pull
+back through the fields in 'fused' mode is ``.warp``, and ∇σ through the
+trunk and the fields in the autograd modes is ``.trunk``.
 """
 from __future__ import annotations
 
@@ -87,6 +96,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 from torch import nn
 
+from nerfds_torch import tracing
 from nerfds_torch.config import ModelConfig
 from nerfds_torch.device import resolve_device
 from nerfds_torch.kernels import fused_trunk
@@ -469,45 +479,49 @@ class NerfDSModel(nn.Module):
 
     def feat_fn(p):
       screw = moving_mask = bone_weights = None
-      if use_warp and cfg.use_bone:
-        bone_out = self.bone_warp_field.warp(p, warp_in_embed)
-        warped_spatial = bone_out['warped_points']
-        moving_mask = bone_out['moving_mask']
-        bone_weights = bone_out['bone_weights']
-      elif use_warp and cfg.warp_field_type == 'translation':
-        warped_spatial = self.warp_field.warp(
-            p, warp_in_embed, extra_params['warp_alpha'],
-            self.cdtype_for('warp'), self.sdtype_for('warp'))
-      elif use_warp:
-        screw = self.warp_field.motion(
-            p, warp_in_embed, extra_params['warp_alpha'],
-            self.cdtype_for('warp'), self.sdtype_for('warp'))
-        warped_spatial = rigid.transform_point(screw, p)
-      else:
-        warped_spatial = p
+      warped_spatial = p
+      if use_warp:
+        with tracing.span('nerfds.model.warp'):
+          if cfg.use_bone:
+            bone_out = self.bone_warp_field.warp(p, warp_in_embed)
+            warped_spatial = bone_out['warped_points']
+            moving_mask = bone_out['moving_mask']
+            bone_weights = bone_out['bone_weights']
+          elif cfg.warp_field_type == 'translation':
+            warped_spatial = self.warp_field.warp(
+                p, warp_in_embed, extra_params['warp_alpha'],
+                self.cdtype_for('warp'), self.sdtype_for('warp'))
+          else:
+            screw = self.warp_field.motion(
+                p, warp_in_embed, extra_params['warp_alpha'],
+                self.cdtype_for('warp'), self.sdtype_for('warp'))
+            warped_spatial = rigid.transform_point(screw, p)
       hyper = None
       if hyper_override is not None:
         hyper = hyper_override
       elif cfg.hyper_slice_method == 'bendy_sheet':
-        hyper = self.hyper_sheet(p, hyper_in_embed,
-                                 alpha=extra_params['hyper_sheet_alpha'],
-                                 dtype=self.cdtype_for('hyper'),
-                                 storage_dtype=self.sdtype_for('hyper'))
+        with tracing.span('nerfds.model.hyper'):
+          hyper = self.hyper_sheet(p, hyper_in_embed,
+                                   alpha=extra_params['hyper_sheet_alpha'],
+                                   dtype=self.cdtype_for('hyper'),
+                                   storage_dtype=self.sdtype_for('hyper'))
       elif cfg.hyper_slice_method == 'axis_aligned_plane':
         hyper = hyper_embed
-      if hyper is not None and cfg.use_hyper_for_sigma:
-        warped = torch.cat([warped_spatial, hyper], -1)
-      else:
-        warped = warped_spatial
-      feat = [math_ops.posenc(
-          warped[..., :3], cfg.spatial_point_min_deg,
-          cfg.spatial_point_max_deg, cfg.use_posenc_identity,
-          alpha=extra_params['nerf_alpha'])]
-      if warped.shape[-1] > 3:
-        feat.append(math_ops.posenc(
-            warped[..., 3:], cfg.hyper_point_min_deg,
-            cfg.hyper_point_max_deg, False,
-            alpha=extra_params['hyper_alpha']))
+      # The trunk's input: the canonical point and its posencs.
+      with tracing.span('nerfds.model.trunk'):
+        if hyper is not None and cfg.use_hyper_for_sigma:
+          warped = torch.cat([warped_spatial, hyper], -1)
+        else:
+          warped = warped_spatial
+        feat = [math_ops.posenc(
+            warped[..., :3], cfg.spatial_point_min_deg,
+            cfg.spatial_point_max_deg, cfg.use_posenc_identity,
+            alpha=extra_params['nerf_alpha'])]
+        if warped.shape[-1] > 3:
+          feat.append(math_ops.posenc(
+              warped[..., 3:], cfg.hyper_point_min_deg,
+              cfg.hyper_point_max_deg, False,
+              alpha=extra_params['hyper_alpha']))
       aux = {'screw': screw, 'warped_spatial': warped_spatial,
              'hyper': hyper, 'warped': warped, 'moving_mask': moving_mask,
              'bone_weights': bone_weights}
@@ -538,11 +552,12 @@ class NerfDSModel(nn.Module):
 
     def sigma_fn(p):
       feat, aux = feat_fn(p)
-      trunk_out, bottleneck = nerf.query_bottleneck(
-          feat, dtype=cdt, storage_dtype=self.sdtype_for('trunk'),
-          pointwise_norm=pointwise_norm)
-      sigma_raw, norm = nerf.query_sigma(trunk_out, bottleneck,
-                                         alpha_condition, dtype=cdt)
+      with tracing.span('nerfds.model.trunk'):
+        trunk_out, bottleneck = nerf.query_bottleneck(
+            feat, dtype=cdt, storage_dtype=self.sdtype_for('trunk'),
+            pointwise_norm=pointwise_norm)
+        sigma_raw, norm = nerf.query_sigma(trunk_out, bottleneck,
+                                           alpha_condition, dtype=cdt)
       aux.update(trunk_out=trunk_out, bottleneck=bottleneck, norm=norm)
       return sigma_raw[..., 0], aux
 
@@ -600,12 +615,18 @@ class NerfDSModel(nn.Module):
                                   hyper_override=hyper_override)
       with torch.enable_grad():
         parts, aux = feat_fn(p)
-        feat = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
-      sigma_2d, norm, trunk_out, bottleneck, g = fused_trunk.trunk_sigma_grad(
-          feat, nerf.trunk_weights(), self.trunk_spec(feat.shape[-1]),
-          compute_dtype=self.cdtype_for('trunk'))
-      (grad_pts,) = torch.autograd.grad(feat, p, grad_outputs=g,
-                                        create_graph=outer_grad)
+      with tracing.span('nerfds.model.trunk'):
+        with torch.enable_grad():
+          feat = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+        sigma_2d, norm, trunk_out, bottleneck, g = (
+            fused_trunk.trunk_sigma_grad(
+                feat, nerf.trunk_weights(), self.trunk_spec(feat.shape[-1]),
+                compute_dtype=self.cdtype_for('trunk')))
+      # ∇σ's pull back through the posencs, the hyper sheet and the warp
+      # field, named after its larger part.
+      with tracing.span('nerfds.model.warp'):
+        (grad_pts,) = torch.autograd.grad(feat, p, grad_outputs=g,
+                                          create_graph=outer_grad)
       aux.update(trunk_out=trunk_out, bottleneck=bottleneck, norm=norm)
       sigma_raw = sigma_2d[..., 0]
     elif mode == 'jvp':
@@ -648,8 +669,10 @@ class NerfDSModel(nn.Module):
       def sigma_and_grad(p):
         with torch.enable_grad():
           sigma_raw, aux = sigma_fn(p)
-          (grad_pts,) = torch.autograd.grad(sigma_raw.sum(), p,
-                                            create_graph=outer_grad)
+          # ∇σ back through the trunk and the fields, named after the trunk.
+          with tracing.span('nerfds.model.trunk'):
+            (grad_pts,) = torch.autograd.grad(sigma_raw.sum(), p,
+                                              create_graph=outer_grad)
         return sigma_raw, aux, grad_pts
 
       if cfg.remat_sigma:
@@ -676,7 +699,7 @@ class NerfDSModel(nn.Module):
     cfg = self.config
     nerf = self.nerf[level]
     outer_grad = torch.is_grad_enabled()
-    with torch.enable_grad():
+    with tracing.span('nerfds.model.trunk'), torch.enable_grad():
       w = (warped if outer_grad and warped.requires_grad
            else warped.detach().requires_grad_())
       feat = [math_ops.posenc(
@@ -728,59 +751,64 @@ class NerfDSModel(nn.Module):
 
     warp_embed = None
     if use_warp:
-      warp_embed = broadcast_ray(
-          metadata['encoded_warp'] if metadata_encoded
-          else self.encode_warp_embed(metadata))
+      with tracing.span('nerfds.model.warp'):
+        warp_embed = broadcast_ray(
+            metadata['encoded_warp'] if metadata_encoded
+            else self.encode_warp_embed(metadata))
     hyper_embed = None
     if cfg.has_hyper:
-      if metadata_encoded:
-        hyper_embed = broadcast_ray(metadata['encoded_hyper'])
-      elif cfg.hyper_use_warp_embed and warp_embed is not None:
-        hyper_embed = warp_embed
-      else:
-        hyper_embed = broadcast_ray(self.encode_hyper_embed(metadata))
+      with tracing.span('nerfds.model.hyper'):
+        if metadata_encoded:
+          hyper_embed = broadcast_ray(metadata['encoded_hyper'])
+        elif cfg.hyper_use_warp_embed and warp_embed is not None:
+          hyper_embed = warp_embed
+        else:
+          hyper_embed = broadcast_ray(self.encode_hyper_embed(metadata))
     alpha_condition = None
     rgb_condition = []
-    if cfg.use_viewdirs and not cfg.use_hyper_c:
-      rgb_condition.append(broadcast_ray(math_ops.posenc(
-          viewdirs, cfg.viewdir_min_deg, cfg.viewdir_max_deg,
-          cfg.use_posenc_identity)))
-    if cfg.use_nerf_embed:
-      nerf_embed = broadcast_ray(
-          metadata['encoded_nerf'] if metadata_encoded
-          else self.encode_nerf_embed(metadata))
-      if cfg.use_alpha_condition:
-        alpha_condition = nerf_embed
-      if cfg.use_rgb_condition:
-        rgb_condition.append(nerf_embed)
+    with tracing.span('nerfds.model.rgb'):
+      if cfg.use_viewdirs and not cfg.use_hyper_c:
+        rgb_condition.append(broadcast_ray(math_ops.posenc(
+            viewdirs, cfg.viewdir_min_deg, cfg.viewdir_max_deg,
+            cfg.use_posenc_identity)))
+      if cfg.use_nerf_embed:
+        nerf_embed = broadcast_ray(
+            metadata['encoded_nerf'] if metadata_encoded
+            else self.encode_nerf_embed(metadata))
+        if cfg.use_alpha_condition:
+          alpha_condition = nerf_embed
+        if cfg.use_rgb_condition:
+          rgb_condition.append(nerf_embed)
     rgb_condition = rgb_condition or None
 
     gt_mask_b = broadcast_ray(gt_mask) if gt_mask is not None else None
 
     # Predicted 3D mask field on the observation-space points.
     predicted_mask = None
+    mask = gt_mask_b
     if cfg.use_predicted_mask:
-      if metadata_encoded and 'encoded_mask' in metadata:
-        mask_embed = broadcast_ray(metadata['encoded_mask'])
-      else:
-        mask_embed = broadcast_ray(self.encode_mask_embed(metadata))
-      if cfg.use_coarse_depth_for_mask:
-        depth_feat = (broadcast_ray(coarse_depth[:, None])
-                      if coarse_depth is not None
-                      else pts.new_full((n, 1), -1.0))
-        mask_embed = torch.cat([depth_feat, mask_embed], -1)
-      predicted_mask = self.mask_mlp(pts, mask_embed,
-                                     alpha=extra_params['warp_alpha'],
-                                     use_embed=cfg.use_mask_embed,
-                                     dtype=self.cdtype_for('mask'),
-                                     storage_dtype=self.sdtype_for('mask'))
-      out['predicted_mask'] = predicted_mask.reshape(num_rays, num_samples, 1)
-      if cfg.clamp_predicted_mask:
-        threshold = cfg.predicted_mask_clamp_threshold
-        predicted_mask = torch.clamp(predicted_mask, max=threshold) / threshold
-      mask = predicted_mask * mask_ratio + gt_mask_b * (1.0 - mask_ratio)
-    else:
-      mask = gt_mask_b
+      with tracing.span('nerfds.model.mask'):
+        if metadata_encoded and 'encoded_mask' in metadata:
+          mask_embed = broadcast_ray(metadata['encoded_mask'])
+        else:
+          mask_embed = broadcast_ray(self.encode_mask_embed(metadata))
+        if cfg.use_coarse_depth_for_mask:
+          depth_feat = (broadcast_ray(coarse_depth[:, None])
+                        if coarse_depth is not None
+                        else pts.new_full((n, 1), -1.0))
+          mask_embed = torch.cat([depth_feat, mask_embed], -1)
+        predicted_mask = self.mask_mlp(pts, mask_embed,
+                                       alpha=extra_params['warp_alpha'],
+                                       use_embed=cfg.use_mask_embed,
+                                       dtype=self.cdtype_for('mask'),
+                                       storage_dtype=self.sdtype_for('mask'))
+        out['predicted_mask'] = predicted_mask.reshape(num_rays, num_samples,
+                                                       1)
+        if cfg.clamp_predicted_mask:
+          threshold = cfg.predicted_mask_clamp_threshold
+          predicted_mask = (torch.clamp(predicted_mask, max=threshold)
+                            / threshold)
+        mask = predicted_mask * mask_ratio + gt_mask_b * (1.0 - mask_ratio)
 
     # Mask-conditioned metadata for the warp and the hyper sheet.
     warp_in_embed = warp_embed
@@ -847,130 +875,191 @@ class NerfDSModel(nn.Module):
         raise ValueError('the bone field has no warp Jacobian (nor has it '
                          'in the JAX package): the elastic loss needs a '
                          "warp_field_type field, use_bone=False")
-      warp_jac = self.warp_field.warp_jacobian(pts, warp_in_embed,
-                                               extra_params['warp_alpha'])
+      with tracing.span('nerfds.model.warp'):
+        warp_jac = self.warp_field.warp_jacobian(pts, warp_in_embed,
+                                                 extra_params['warp_alpha'])
       out['warp_jacobian'] = warp_jac.reshape(num_rays, num_samples, 3, 3)
 
-    # Normal input of the radiance branch: ∇σ itself, or the predicted
-    # normal, rotated back to the observation frame by the inverse of the
-    # same screw where it is supervised in the canonical frame.
-    norm_input = None
-    if cfg.use_sigma_gradient:
-      norm_input = sigma_gradient
-    elif cfg.use_predicted_norm:
-      if cfg.norm_supervision_type in ('warped', 'canonical'):
-        norm_input = math_ops.normalize(norm)
-        if screw is not None:
-          norm_input = rigid.rotate_inverse(fresh_screw(), norm_input)
-      else:  # 'direct', 'canonical_unwarped'
-        norm_input = norm
-    norm_input_feat = None
-    if norm_input is not None:
-      if cfg.stop_norm_gradient:
-        norm_input = norm_input.detach()
-      norm_input = math_ops.normalize(norm_input)
-      if return_full:
-        out['norm_input'] = norm_input.reshape(num_rays, num_samples, 3)
-      norm_input_feat = (math_ops.posenc(
-          norm_input, cfg.norm_input_min_deg, cfg.norm_input_max_deg,
-          cfg.use_posenc_identity, alpha=extra_params['norm_input_alpha'])
-          if cfg.norm_input_posenc else norm_input)
-
-    ref_radiance = ref_radiance_feat = None
-    if cfg.use_ref_radiance:
-      ref_radiance = math_ops.reflect(broadcast_ray(viewdirs), norm_input)
-      ref_radiance_feat = math_ops.posenc(
-          ref_radiance, cfg.norm_input_min_deg, cfg.norm_input_max_deg,
-          cfg.use_posenc_identity, alpha=extra_params['norm_input_alpha'])
-
-    # Extra rgb conditions, in the JAX package's order.
-    extra_rgb_parts = []
-    screw_condition = None
-    if (cfg.screw_input_mode not in (None, 'none', 'None')
-        and not cfg.use_hyper_c and screw is not None):
-      axis6 = screw.axis
-      screw_condition = (axis6[:, :3] if cfg.screw_input_mode == 'rotation'
-                         else axis6)
-    if cfg.use_hyper_c:
-      # Ambient colour coordinates: a sheet MLP over the (stop-gradiented)
-      # points ⊕ viewdirs [⊕ normal] [⊕ reflection], in place of the view
-      # direction and normal conditions.
-      points_input = (aux['warped'] if cfg.hyper_c_hyper_input
-                      else pts).detach()
-      hc_in = [points_input[..., :3], broadcast_ray(viewdirs)]
-      if norm_input is not None:
-        hc_in.append(norm_input)
-      if ref_radiance is not None:
-        hc_in.append(ref_radiance)
-      hyper_c_embed = None
-      if cfg.use_hyper_c_embed:
-        hyper_c_embed = broadcast_ray(
-            metadata['encoded_hyper_c']
-            if metadata_encoded and 'encoded_hyper_c' in metadata
-            else self.encode_hyper_c_embed(metadata))
-      hyper_c = self.hyper_c_mlp(torch.cat(hc_in, -1), hyper_c_embed,
-                                 dtype=self.cdtype_for('hyper'))
-      extra_rgb_parts.append(math_ops.posenc(
-          hyper_c, cfg.hyper_point_min_deg, cfg.hyper_point_max_deg, False,
-          alpha=extra_params['hyper_alpha']))
-      out['hyper_c'] = hyper_c.reshape(num_rays, num_samples, -1)
+    with tracing.span('nerfds.model.rgb'):
+      # Normal input of the radiance branch: ∇σ itself, or the predicted
+      # normal, rotated back to the observation frame by the inverse of the
+      # same screw where it is supervised in the canonical frame.
+      norm_input = None
+      if cfg.use_sigma_gradient:
+        norm_input = sigma_gradient
+      elif cfg.use_predicted_norm:
+        if cfg.norm_supervision_type in ('warped', 'canonical'):
+          norm_input = math_ops.normalize(norm)
+          if screw is not None:
+            norm_input = rigid.rotate_inverse(fresh_screw(), norm_input)
+        else:  # 'direct', 'canonical_unwarped'
+          norm_input = norm
       norm_input_feat = None
-    if cfg.use_x_in_rgb_condition:
-      extra_rgb_parts.append(
-          math_ops.posenc(pts, cfg.x_for_rgb_min_deg, cfg.x_for_rgb_max_deg,
-                          alpha=x_for_rgb_alpha)
-          if cfg.window_x_in_rgb_condition else aux['trunk_out'])
-    if cfg.use_delta_x_in_rgb_condition:
-      extra_rgb_parts.append((aux['warped_spatial'] - pts).detach())
-    if cfg.use_hyper_for_rgb:
-      extra_rgb_parts.append(aux['hyper'])
-    if ref_radiance_feat is not None:
-      extra_rgb_parts.append(ref_radiance_feat)
+      if norm_input is not None:
+        if cfg.stop_norm_gradient:
+          norm_input = norm_input.detach()
+        norm_input = math_ops.normalize(norm_input)
+        if return_full:
+          out['norm_input'] = norm_input.reshape(num_rays, num_samples, 3)
+        norm_input_feat = (math_ops.posenc(
+            norm_input, cfg.norm_input_min_deg, cfg.norm_input_max_deg,
+            cfg.use_posenc_identity, alpha=extra_params['norm_input_alpha'])
+            if cfg.norm_input_posenc else norm_input)
 
-    # Mask-derived compositing weights (for the 3D mask loss and the mask
-    # rgb condition).
-    sigma_act = get_activation(cfg.sigma_activation)
-    mask_weights = rendering.cal_weights(
-        sigma_act(sigma_raw.reshape(num_rays, num_samples)), z_vals,
-        directions, scale=5.0 if cfg.use_mask_scaled_weights else 1.0
-    ).detach()
-    sharp_weights = None
-    if cfg.use_mask_sharp_weights:
-      sharp_weights = rendering.sharpen_weights(
-          mask_weights, z_vals, std=sharp_weights_std)
-      out['sharp_weights'] = sharp_weights
-    if cfg.use_mask_in_rgb:
-      w = (sharp_weights if cfg.use_mask_sharp_weights
-           else mask_weights).reshape(n, 1)
-      mask_3d = w * gt_mask_b
+      ref_radiance = ref_radiance_feat = None
+      if cfg.use_ref_radiance:
+        ref_radiance = math_ops.reflect(broadcast_ray(viewdirs), norm_input)
+        ref_radiance_feat = math_ops.posenc(
+            ref_radiance, cfg.norm_input_min_deg, cfg.norm_input_max_deg,
+            cfg.use_posenc_identity, alpha=extra_params['norm_input_alpha'])
+
+      # Extra rgb conditions, in the JAX package's order.
+      extra_rgb_parts = []
+      screw_condition = None
+      if (cfg.screw_input_mode not in (None, 'none', 'None')
+          and not cfg.use_hyper_c and screw is not None):
+        axis6 = screw.axis
+        screw_condition = (axis6[:, :3]
+                           if cfg.screw_input_mode == 'rotation' else axis6)
+      if cfg.use_hyper_c:
+        # Ambient colour coordinates: a sheet MLP over the (stop-gradiented)
+        # points ⊕ viewdirs [⊕ normal] [⊕ reflection], in place of the view
+        # direction and normal conditions.
+        with tracing.span('nerfds.model.hyper'):
+          points_input = (aux['warped'] if cfg.hyper_c_hyper_input
+                          else pts).detach()
+          hc_in = [points_input[..., :3], broadcast_ray(viewdirs)]
+          if norm_input is not None:
+            hc_in.append(norm_input)
+          if ref_radiance is not None:
+            hc_in.append(ref_radiance)
+          hyper_c_embed = None
+          if cfg.use_hyper_c_embed:
+            hyper_c_embed = broadcast_ray(
+                metadata['encoded_hyper_c']
+                if metadata_encoded and 'encoded_hyper_c' in metadata
+                else self.encode_hyper_c_embed(metadata))
+          hyper_c = self.hyper_c_mlp(torch.cat(hc_in, -1), hyper_c_embed,
+                                     dtype=self.cdtype_for('hyper'))
+          extra_rgb_parts.append(math_ops.posenc(
+              hyper_c, cfg.hyper_point_min_deg, cfg.hyper_point_max_deg, False,
+              alpha=extra_params['hyper_alpha']))
+          out['hyper_c'] = hyper_c.reshape(num_rays, num_samples, -1)
+        norm_input_feat = None
+      if cfg.use_x_in_rgb_condition:
+        extra_rgb_parts.append(
+            math_ops.posenc(pts, cfg.x_for_rgb_min_deg, cfg.x_for_rgb_max_deg,
+                            alpha=x_for_rgb_alpha)
+            if cfg.window_x_in_rgb_condition else aux['trunk_out'])
+      if cfg.use_delta_x_in_rgb_condition:
+        extra_rgb_parts.append((aux['warped_spatial'] - pts).detach())
+      if cfg.use_hyper_for_rgb:
+        extra_rgb_parts.append(aux['hyper'])
+      if ref_radiance_feat is not None:
+        extra_rgb_parts.append(ref_radiance_feat)
+
+      # Mask-derived compositing weights (for the 3D mask loss and the mask
+      # rgb condition).
+      sigma_act = get_activation(cfg.sigma_activation)
+      mask_weights = rendering.cal_weights(
+          sigma_act(sigma_raw.reshape(num_rays, num_samples)), z_vals,
+          directions, scale=5.0 if cfg.use_mask_scaled_weights else 1.0
+      ).detach()
+      sharp_weights = None
+      if cfg.use_mask_sharp_weights:
+        sharp_weights = rendering.sharpen_weights(
+            mask_weights, z_vals, std=sharp_weights_std)
+        out['sharp_weights'] = sharp_weights
+      if cfg.use_mask_in_rgb:
+        w = (sharp_weights if cfg.use_mask_sharp_weights
+             else mask_weights).reshape(n, 1)
+        mask_3d = w * gt_mask_b
+        if cfg.use_predicted_mask:
+          predicted_mask_3d = (predicted_mask if cfg.use_3d_mask
+                               else w * predicted_mask)
+          mask_3d = (predicted_mask_3d * mask_ratio
+                     + mask_3d * (1.0 - mask_ratio))
+        extra_rgb_parts.append(mask_3d)
+
+      rgb_raw = self.nerf[level].query_rgb(
+          aux['trunk_out'], aux['bottleneck'], rgb_condition,
+          extra_rgb_parts or None, screw_condition, norm_input_feat,
+          dtype=self.cdtype_for('rgb'), storage_dtype=self.sdtype_for('rgb'))
+      rgb = torch.sigmoid(rgb_raw).reshape(num_rays, num_samples, 3)
+    # Compositing, and the depth and normal maps.
+    with tracing.span('nerfds.model.composite'):
+      sigma = sigma_act(rendering.noise_regularize_sigma(
+          sigma_raw.reshape(num_rays, num_samples), cfg.noise_std,
+          cfg.use_stratified_sampling, generator))
+      out['sigma'] = sigma
+
+      out.update(rendering.volumetric_rendering(
+          rgb, sigma, z_vals, directions,
+          use_white_background=cfg.use_white_background,
+          sample_at_infinity=use_sample_at_infinity,
+          use_sharp_weights=cfg.use_rgb_sharp_weights,
+          sharp_weights_std=sharp_weights_std,
+          use_kernel=cfg.use_pallas_compositing))
+      weights = out['weights']
+
+      warped_points = aux['warped'].reshape(num_rays, num_samples, -1)
+      out['warped_points'] = warped_points
+
+      if cfg.predict_norm:
+        norm_rs = norm.reshape(num_rays, num_samples, 3)
+        out['predicted_norm'] = norm_rs
+        back_facing = (norm_rs * viewdirs[:, None, :]).sum(-1)
+        out['back_facing'] = torch.relu(back_facing) ** 2
+      if cfg.predict_norm and sigma_gradient is not None:
+        if cfg.norm_supervision_type == 'warped':
+          # Canonical-frame target: ∇σ rotated forward by the same screw.
+          target = math_ops.normalize(
+              rigid.rotate(fresh_screw(), sigma_gradient) if screw is not None
+              else sigma_gradient)
+        elif cfg.norm_supervision_type == 'canonical':
+          target = sigma_gradient_w
+        else:  # 'direct', 'canonical_unwarped': ∇σ unrotated
+          target = sigma_gradient
+        out['target_norm'] = target.reshape(num_rays, num_samples, 3)
+
+      if norm is not None:
+        out['ray_norm'] = (weights[..., None]
+                           * norm.reshape(num_rays, num_samples, 3)).sum(-2)
+      elif sigma_gradient is not None:
+        out['ray_norm'] = (weights[..., None] * sigma_gradient.reshape(
+            num_rays, num_samples, 3)).sum(-2)
+      delta_x = warped_points[..., :3] - points
+      out['delta_x'] = delta_x
+      out['ray_delta_x'] = (weights[..., None] * delta_x).sum(-2)
+      out['ray_hyper_points'] = (weights[..., None]
+                                 * warped_points[..., 3:]).sum(-2)
+      if cfg.use_hyper_c:
+        out['ray_hyper_c'] = (weights[..., None] * out['hyper_c']).sum(-2)
       if cfg.use_predicted_mask:
-        predicted_mask_3d = (predicted_mask if cfg.use_3d_mask
-                             else w * predicted_mask)
-        mask_3d = (predicted_mask_3d * mask_ratio
-                   + mask_3d * (1.0 - mask_ratio))
-      extra_rgb_parts.append(mask_3d)
+        pm = out['predicted_mask']
+        if cfg.use_mask_scaled_weights:
+          out['scaled_weights'] = mask_weights
+          out['ray_predicted_mask'] = (mask_weights[..., None] * pm).sum(-2)
+        else:
+          out['ray_predicted_mask'] = (weights[..., None] * pm).sum(-2)
+      if aux['moving_mask'] is not None:
+        mm = aux['moving_mask'].reshape(num_rays, num_samples, 1)
+        out['moving_mask'] = mm
+        out['ray_moving_mask'] = (weights[..., None] * mm).sum(-2)
 
-    rgb_raw = self.nerf[level].query_rgb(
-        aux['trunk_out'], aux['bottleneck'], rgb_condition,
-        extra_rgb_parts or None, screw_condition, norm_input_feat,
-        dtype=self.cdtype_for('rgb'), storage_dtype=self.sdtype_for('rgb'))
-    rgb = torch.sigmoid(rgb_raw).reshape(num_rays, num_samples, 3)
-    sigma = sigma_act(rendering.noise_regularize_sigma(
-        sigma_raw.reshape(num_rays, num_samples), cfg.noise_std,
-        cfg.use_stratified_sampling, generator))
-    out['sigma'] = sigma
+      depth_indices = rendering.compute_depth_index(weights)
+      out['med_points'] = torch.gather(
+          warped_points, 1, depth_indices[:, None, None].expand(
+              -1, 1, warped_points.shape[-1]))
 
-    out.update(rendering.volumetric_rendering(
-        rgb, sigma, z_vals, directions,
-        use_white_background=cfg.use_white_background,
-        sample_at_infinity=use_sample_at_infinity,
-        use_sharp_weights=cfg.use_rgb_sharp_weights,
-        sharp_weights_std=sharp_weights_std,
-        use_kernel=cfg.use_pallas_compositing))
-    weights = out['weights']
-
-    warped_points = aux['warped'].reshape(num_rays, num_samples, -1)
-    out['warped_points'] = warped_points
+      if return_full and screw is not None:
+        viz_screw = fresh_screw()
+        rotation_ref = math_ops.normalize(torch.ones_like(pts))
+        rf = math_ops.normalize(rigid.rotate(viz_screw, rotation_ref))
+        out['ray_rotation_field'] = (
+            weights[..., None] * rf.reshape(num_rays, num_samples, 3)).sum(-2)
+        tf = rigid.translation(viz_screw).reshape(num_rays, num_samples, 3)
+        out['ray_translation_field'] = (weights[..., None] * tf).sum(-2)
 
     if topk_k is not None:
       topk_idx = topk_indices(weights.detach(), topk_k)
@@ -999,61 +1088,6 @@ class NerfDSModel(nn.Module):
       out['target_norm'] = target_k.reshape(num_rays, topk_k, 3)
       out['norm_topk_idx'] = topk_idx
 
-    if cfg.predict_norm:
-      norm_rs = norm.reshape(num_rays, num_samples, 3)
-      out['predicted_norm'] = norm_rs
-      back_facing = (norm_rs * viewdirs[:, None, :]).sum(-1)
-      out['back_facing'] = torch.relu(back_facing) ** 2
-    if cfg.predict_norm and sigma_gradient is not None:
-      if cfg.norm_supervision_type == 'warped':
-        # Canonical-frame target: ∇σ rotated forward by the same screw.
-        target = math_ops.normalize(
-            rigid.rotate(fresh_screw(), sigma_gradient) if screw is not None
-            else sigma_gradient)
-      elif cfg.norm_supervision_type == 'canonical':
-        target = sigma_gradient_w
-      else:  # 'direct', 'canonical_unwarped': ∇σ unrotated
-        target = sigma_gradient
-      out['target_norm'] = target.reshape(num_rays, num_samples, 3)
-
-    if norm is not None:
-      out['ray_norm'] = (weights[..., None]
-                         * norm.reshape(num_rays, num_samples, 3)).sum(-2)
-    elif sigma_gradient is not None:
-      out['ray_norm'] = (weights[..., None] * sigma_gradient.reshape(
-          num_rays, num_samples, 3)).sum(-2)
-    delta_x = warped_points[..., :3] - points
-    out['delta_x'] = delta_x
-    out['ray_delta_x'] = (weights[..., None] * delta_x).sum(-2)
-    out['ray_hyper_points'] = (weights[..., None]
-                               * warped_points[..., 3:]).sum(-2)
-    if cfg.use_hyper_c:
-      out['ray_hyper_c'] = (weights[..., None] * out['hyper_c']).sum(-2)
-    if cfg.use_predicted_mask:
-      pm = out['predicted_mask']
-      if cfg.use_mask_scaled_weights:
-        out['scaled_weights'] = mask_weights
-        out['ray_predicted_mask'] = (mask_weights[..., None] * pm).sum(-2)
-      else:
-        out['ray_predicted_mask'] = (weights[..., None] * pm).sum(-2)
-    if aux['moving_mask'] is not None:
-      mm = aux['moving_mask'].reshape(num_rays, num_samples, 1)
-      out['moving_mask'] = mm
-      out['ray_moving_mask'] = (weights[..., None] * mm).sum(-2)
-
-    depth_indices = rendering.compute_depth_index(weights)
-    out['med_points'] = torch.gather(
-        warped_points, 1, depth_indices[:, None, None].expand(
-            -1, 1, warped_points.shape[-1]))
-
-    if return_full and screw is not None:
-      viz_screw = fresh_screw()
-      rotation_ref = math_ops.normalize(torch.ones_like(pts))
-      rf = math_ops.normalize(rigid.rotate(viz_screw, rotation_ref))
-      out['ray_rotation_field'] = (
-          weights[..., None] * rf.reshape(num_rays, num_samples, 3)).sum(-2)
-      tf = rigid.translation(viz_screw).reshape(num_rays, num_samples, 3)
-      out['ray_translation_field'] = (weights[..., None] * tf).sum(-2)
     return out
 
   # -- full forward ---------------------------------------------------------
@@ -1134,26 +1168,30 @@ class NerfDSModel(nn.Module):
     jacobian_levels = (self.levels if return_warp_jacobian is True
                        else return_warp_jacobian or ())
 
-    z_vals, points = sampling.sample_along_rays(
-        origins, directions, cfg.num_coarse_samples, near, far,
-        cfg.use_stratified_sampling, cfg.use_linear_disparity, generator)
-    coarse = self.render_samples(
-        'coarse', points, z_vals, directions, viewdirs, metadata,
-        extra_params, gt_mask,
-        use_sample_at_infinity=cfg.use_sample_at_infinity,
-        return_warp_jacobian='coarse' in jacobian_levels, **kwargs)
+    with tracing.span('nerfds.model.coarse'):
+      with tracing.span('nerfds.model.sample'):
+        z_vals, points = sampling.sample_along_rays(
+            origins, directions, cfg.num_coarse_samples, near, far,
+            cfg.use_stratified_sampling, cfg.use_linear_disparity, generator)
+      coarse = self.render_samples(
+          'coarse', points, z_vals, directions, viewdirs, metadata,
+          extra_params, gt_mask,
+          use_sample_at_infinity=cfg.use_sample_at_infinity,
+          return_warp_jacobian='coarse' in jacobian_levels, **kwargs)
     out = {'coarse': coarse}
     if cfg.num_fine_samples > 0:
-      z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-      z_vals, points = sampling.sample_pdf(
-          z_vals_mid, coarse['weights'][..., 1:-1], origins, directions,
-          z_vals, cfg.num_fine_samples, cfg.use_stratified_sampling,
-          generator)
-      out['fine'] = self.render_samples(
-          'fine', points, z_vals, directions, viewdirs, metadata,
-          extra_params, gt_mask, coarse_depth=coarse['depth'],
-          use_sample_at_infinity=use_sample_at_infinity,
-          return_warp_jacobian='fine' in jacobian_levels, **kwargs)
+      with tracing.span('nerfds.model.fine'):
+        with tracing.span('nerfds.model.sample'):
+          z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+          z_vals, points = sampling.sample_pdf(
+              z_vals_mid, coarse['weights'][..., 1:-1], origins, directions,
+              z_vals, cfg.num_fine_samples, cfg.use_stratified_sampling,
+              generator)
+        out['fine'] = self.render_samples(
+            'fine', points, z_vals, directions, viewdirs, metadata,
+            extra_params, gt_mask, coarse_depth=coarse['depth'],
+            use_sample_at_infinity=use_sample_at_infinity,
+            return_warp_jacobian='fine' in jacobian_levels, **kwargs)
     for level in out.values():
       if not return_weights:
         level.pop('weights', None)

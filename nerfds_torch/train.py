@@ -196,7 +196,8 @@ def _train(args):
     t = data['time']
     say(f"step {step} loss={stats[level]['loss/total']:.5f} "
         f"psnr={stats[level]['metric/psnr']:.2f} "
-        f"steps/s={t.get('steps_per_sec', 0):.2f}", flush=True)
+        f"steps/s={t['steps_per_sec']:.2f} rays/s={t['rays_per_sec']:.0f}",
+        flush=True)
 
   start = time.time()
   state = trainer.train(log_fn=log_fn)

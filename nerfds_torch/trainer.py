@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from nerfds_torch import config as config_lib
+from nerfds_torch import tracing
 from nerfds_torch.datasets.core import DataSource, HostRayIterator, RayStore
 from nerfds_torch.evaluation import metrics as metrics_lib
 from nerfds_torch.evaluation.render import render_image
@@ -43,38 +44,8 @@ from nerfds_torch.training.logging import MetricWriter
 from nerfds_torch.training.step import (TrainState, background_batch_size,
                                         build_schedules, eval_schedules,
                                         local_batch_size,
-                                        make_fused_train_step,
-                                        make_train_step)
-
-
-class TimeTracker:
-  """Wall-clock meters."""
-
-  def __init__(self):
-    self._sums: Dict[str, float] = {}
-    self._counts: Dict[str, int] = {}
-    self._marks: Dict[str, float] = {}
-
-  def tic(self, *keys):
-    now = time.time()
-    for k in keys:
-      self._marks[k] = now
-
-  def toc(self, *keys):
-    now = time.time()
-    for k in keys:
-      self._sums[k] = self._sums.get(k, 0.0) + now - self._marks.pop(k)
-      self._counts[k] = self._counts.get(k, 0) + 1
-
-  def summary(self) -> Dict[str, float]:
-    out = {k: self._sums[k] / max(self._counts[k], 1) for k in self._sums}
-    if 'total' in out and out['total'] > 0:
-      out['steps_per_sec'] = 1.0 / out['total']
-    return out
-
-  def reset(self):
-    self._sums.clear()
-    self._counts.clear()
+                                        make_drawing_train_step,
+                                        make_fused_train_step)
 
 
 def _stats_to_host(stats: Dict[str, Any]
@@ -257,7 +228,6 @@ class Trainer:
     background points drawn on the host from ``RandomState(random_seed +
     31)``, as the JAX package's host path draws them."""
     cfg = self.train_cfg
-    explicit = make_train_step(self.model, cfg, self.mesh)
     points = None
     if cfg.use_background_loss:
       points = self.datasource.load_points(shuffle=True)
@@ -266,41 +236,48 @@ class Trainer:
       n_bg = background_batch_size(cfg, points.shape[0], self.mesh)
       bg_rng = np.random.RandomState(rank_seed(cfg.random_seed + 31, rank))
 
-    def step_fn(state: TrainState, generator: torch.Generator):
+    def draw(generator: torch.Generator):
       batch = next(host_iter)
       if points is not None:
         idx = bg_rng.randint(0, points.shape[0], n_bg)
         batch['background_points'] = torch.as_tensor(
             points[idx], device=self.model.device)
-      return explicit(state, batch, generator)
+      return batch
 
-    return step_fn
+    return make_drawing_train_step(self.model, cfg, draw, self.mesh)
 
   def _run(self, step_fn, state: TrainState, num_steps: int, rank: int,
            log_fn) -> TrainState:
+    """The loop. At each print point the stats come to the host, which
+    waits for the card there; the logged rate (``time/steps_per_sec``,
+    ``time/rays_per_sec``) is the steps since the previous print point
+    over the wall seconds between the two (from the loop's start for the
+    first)."""
     cfg = self.train_cfg
     generator = torch.Generator(device=self.model.device)
     base_seed = ((cfg.random_seed + 17) << 32) | (rank << 56)
-    tracker = TimeTracker()
+    since, last = state.step, time.perf_counter()
     for step in range(state.step, num_steps):
-      tracker.tic('total')
       generator.manual_seed(base_seed + step)
       state, stats = step_fn(state, generator)
       if (step + 1) % cfg.print_every == 0 or step + 1 == num_steps:
-        stats_host, hists = _stats_to_host(stats)
-        tracker.toc('total')
-        if log_fn is not None:
-          log_fn(step + 1, {'stats': stats_host, 'time': tracker.summary()})
-        if self.metrics_writer is not None:
-          self._write_summaries(step + 1, state, stats_host, hists,
-                                tracker.summary())
-        tracker.reset()
-      else:
-        tracker.toc('total')
+        with tracing.span('nerfds.trainer.log', unit=step):
+          stats_host, hists = _stats_to_host(stats)
+          now = time.perf_counter()
+          steps_per_sec = (step + 1 - since) / (now - last)
+          times = {'steps_per_sec': steps_per_sec,
+                   'rays_per_sec': steps_per_sec * cfg.batch_size}
+          since, last = step + 1, now
+          if log_fn is not None:
+            log_fn(step + 1, {'stats': stats_host, 'time': times})
+          if self.metrics_writer is not None:
+            self._write_summaries(step + 1, state, stats_host, hists, times)
       if self.ckpt is not None and (step + 1) % cfg.save_every == 0:
-        self._save(step + 1, state)
+        with tracing.span('nerfds.trainer.checkpoint', unit=step):
+          self._save(step + 1, state)
     if self.ckpt is not None and num_steps % cfg.save_every != 0:
-      self._save(num_steps, state)
+      with tracing.span('nerfds.trainer.checkpoint', unit=num_steps - 1):
+        self._save(num_steps, state)
     return state
 
   def _save(self, step: int, state: TrainState) -> None:

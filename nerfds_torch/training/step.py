@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from nerfds_torch import tracing
 from nerfds_torch.config import TrainConfig
 from nerfds_torch.datasets.core import RayStore, sample_batch
 from nerfds_torch.models.nerfds import NerfDSModel
@@ -133,49 +134,52 @@ def make_loss_fn(model: NerfDSModel, train_cfg: TrainConfig,
 
   def loss_fn(params, batch, generator, scalars):
     extra_params = {k: scalars[k] for k in _EXTRA_PARAM_KEYS}
-    out = torch.func.functional_call(
-        model, params, (batch, extra_params),
-        dict(generator=generator, return_points=True, return_weights=True,
-             mask_ratio=scalars['mask_ratio'],
-             sharp_weights_std=scalars['sharp_weights_std'],
-             x_for_rgb_alpha=scalars['x_for_rgb_alpha'],
-             return_warp_jacobian=(('coarse',) if train_cfg.use_elastic_loss
-                                   else False)))
-    total = 0.0
-    stats: Dict[str, Any] = {}
-    if 'fine' in out:
-      fine_loss, stats['fine'] = losses_lib.compute_loss_and_stats(
-          model_cfg, train_cfg, out['fine'], batch, scalars, mesh=mesh)
-      total = total + fine_loss
-    coarse_loss, stats['coarse'] = losses_lib.compute_loss_and_stats(
-        model_cfg, train_cfg, out['coarse'], batch, scalars,
-        use_elastic_loss=train_cfg.use_elastic_loss,
-        use_hyper_reg_loss=train_cfg.use_hyper_reg_loss, mesh=mesh)
-    total = total + coarse_loss
+    with tracing.span('nerfds.train.forward'):
+      out = torch.func.functional_call(
+          model, params, (batch, extra_params),
+          dict(generator=generator, return_points=True, return_weights=True,
+               mask_ratio=scalars['mask_ratio'],
+               sharp_weights_std=scalars['sharp_weights_std'],
+               x_for_rgb_alpha=scalars['x_for_rgb_alpha'],
+               return_warp_jacobian=(('coarse',)
+                                     if train_cfg.use_elastic_loss
+                                     else False)))
+    with tracing.span('nerfds.train.loss'):
+      total = 0.0
+      stats: Dict[str, Any] = {}
+      if 'fine' in out:
+        fine_loss, stats['fine'] = losses_lib.compute_loss_and_stats(
+            model_cfg, train_cfg, out['fine'], batch, scalars, mesh=mesh)
+        total = total + fine_loss
+      coarse_loss, stats['coarse'] = losses_lib.compute_loss_and_stats(
+          model_cfg, train_cfg, out['coarse'], batch, scalars,
+          use_elastic_loss=train_cfg.use_elastic_loss,
+          use_hyper_reg_loss=train_cfg.use_hyper_reg_loss, mesh=mesh)
+      total = total + coarse_loss
 
-    if train_cfg.use_background_loss and 'background_points' in batch:
-      draws = None
-      if 'background_metadata' in batch:
-        draws = (batch['background_metadata'], batch['background_noise'])
-      background_loss = losses_lib.compute_background_loss(
-          model, params, batch['background_points'], extra_params,
-          noise_std=train_cfg.background_noise_std, generator=generator,
-          draws=draws).mean()
-      total = total + train_cfg.background_loss_weight * background_loss
-      stats['loss/background'] = background_loss
+      if train_cfg.use_background_loss and 'background_points' in batch:
+        draws = None
+        if 'background_metadata' in batch:
+          draws = (batch['background_metadata'], batch['background_noise'])
+        background_loss = losses_lib.compute_background_loss(
+            model, params, batch['background_points'], extra_params,
+            noise_std=train_cfg.background_noise_std, generator=generator,
+            draws=draws).mean()
+        total = total + train_cfg.background_loss_weight * background_loss
+        stats['loss/background'] = background_loss
 
-    if train_cfg.log_histograms:
-      # Strided samples of the warped points, about 2048, for histograms.
-      o = out['fine' if 'fine' in out else 'coarse']
-      warped = o['warped_points'].detach()
-      points = o['points'].detach()
-      rows = torch.cat([warped, warped[..., :3] - points], -1)
-      rows = _strided_rows(rows.reshape(-1, rows.shape[-1]), mesh)
-      stats['hist/spatial_points'] = rows[:, :3]
-      stats['hist/spatial_points_delta'] = rows[:, -3:]
-      if warped.shape[-1] > 3:
-        stats['hist/hyper_points'] = rows[:, 3:warped.shape[-1]]
-    return total, stats
+      if train_cfg.log_histograms:
+        # Strided samples of the warped points, about 2048, for histograms.
+        o = out['fine' if 'fine' in out else 'coarse']
+        warped = o['warped_points'].detach()
+        points = o['points'].detach()
+        rows = torch.cat([warped, warped[..., :3] - points], -1)
+        rows = _strided_rows(rows.reshape(-1, rows.shape[-1]), mesh)
+        stats['hist/spatial_points'] = rows[:, :3]
+        stats['hist/spatial_points_delta'] = rows[:, -3:]
+        if warped.shape[-1] > 3:
+          stats['hist/hyper_points'] = rows[:, 3:warped.shape[-1]]
+      return total, stats
 
   return loss_fn
 
@@ -189,10 +193,12 @@ def _detach_stats(stats):
 def _grads(loss_fn, params: Params, batch, generator, scalars):
   leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
   loss, stats = loss_fn(leaves, batch, generator, scalars)
-  grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-  grads = {k: torch.zeros_like(v) if g is None else g
-           for (k, v), g in zip(leaves.items(), grads)}
-  return grads, _detach_stats(stats)
+  with tracing.span('nerfds.train.backward'):
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(leaves.items(), grads)}
+    return grads, _detach_stats(stats)
 
 
 def _split_batch(batch, accum: int):
@@ -231,14 +237,17 @@ def _accum_grads(loss_fn, params: Params, batch, generator, scalars,
   activation memory follows the microbatch."""
   if accum <= 1:
     return _grads(loss_fn, params, batch, generator, scalars)
-  grads_sum = {k: torch.zeros_like(v) for k, v in params.items()}
+  with tracing.span('nerfds.train.backward'):
+    grads_sum = {k: torch.zeros_like(v) for k, v in params.items()}
   all_stats = []
   for mb in _split_batch(batch, accum):
     grads, stats = _grads(loss_fn, params, mb, generator, scalars)
-    grads_sum = {k: grads_sum[k] + grads[k] for k in grads_sum}
+    with tracing.span('nerfds.train.backward'):
+      grads_sum = {k: grads_sum[k] + grads[k] for k in grads_sum}
     all_stats.append(stats)
-  return ({k: g / accum for k, g in grads_sum.items()},
-          _stack_stats(all_stats))
+  with tracing.span('nerfds.train.backward'):
+    return ({k: g / accum for k, g in grads_sum.items()},
+            _stack_stats(all_stats))
 
 
 def _stat_leaves(stats, path=()):
@@ -297,17 +306,40 @@ def adam_update(grads: Params, state: AdamState,
 
 def _apply(state: TrainState, grads: Params, stats, scalars,
            train_cfg: TrainConfig) -> Tuple[TrainState, Dict[str, Any]]:
-  if train_cfg.disable_hyper_grads:
-    grads = _freeze_subtree_grads(grads, 'hyper_sheet')
-  if train_cfg.grad_max_val > 0 or train_cfg.grad_max_norm > 0:
-    grads = math_ops.clip_gradients(grads, train_cfg.grad_max_val,
-                                    train_cfg.grad_max_norm)
-  updates, opt_state = adam_update(grads, state.opt_state)
-  lr = scalars['learning_rate']
-  params = {k: p + (-lr * updates[k]) for k, p in state.params.items()}
+  with tracing.span('nerfds.train.adam'):
+    if train_cfg.disable_hyper_grads:
+      grads = _freeze_subtree_grads(grads, 'hyper_sheet')
+    if train_cfg.grad_max_val > 0 or train_cfg.grad_max_norm > 0:
+      grads = math_ops.clip_gradients(grads, train_cfg.grad_max_val,
+                                      train_cfg.grad_max_norm)
+    updates, opt_state = adam_update(grads, state.opt_state)
+    lr = scalars['learning_rate']
+    params = {k: p + (-lr * updates[k]) for k, p in state.params.items()}
   stats['learning_rate'] = lr
   return TrainState(step=state.step + 1, params=params,
                     opt_state=opt_state), stats
+
+
+def _make_step_body(model: NerfDSModel, train_cfg: TrainConfig,
+                    mesh: Optional[mesh_lib.DataMesh]):
+  """body(state, batch, generator) -> (new state, stats): a step on a
+  batch the caller has, inside the caller's ``nerfds.train.step`` span."""
+  schedules = build_schedules(train_cfg)
+  mesh_lib.check_batch_norm(model.config.norm_type, mesh)
+  loss_fn = make_loss_fn(model, train_cfg, mesh)
+  accum = max(int(train_cfg.accum_steps), 1)
+  reduce = mesh is not None and mesh.world_size > 1
+
+  def body(state: TrainState, batch, generator):
+    scalars = eval_schedules(schedules, state.step)
+    grads, stats = _accum_grads(loss_fn, state.params, batch, generator,
+                                scalars, accum)
+    if reduce:
+      with tracing.span('nerfds.train.allreduce'):
+        grads, stats = _mesh_reduce(grads, stats, mesh)
+    return _apply(state, grads, stats, scalars, train_cfg)
+
+  return body
 
 
 def make_train_step(model: NerfDSModel, train_cfg: TrainConfig,
@@ -315,19 +347,28 @@ def make_train_step(model: NerfDSModel, train_cfg: TrainConfig,
   """step(state, batch, generator=None) -> (new state, stats). Under
   ``mesh``, ``batch`` is this rank's rows of the global batch
   (``parallel.shard_batch``)."""
-  schedules = build_schedules(train_cfg)
-  mesh_lib.check_batch_norm(model.config.norm_type, mesh)
-  loss_fn = make_loss_fn(model, train_cfg, mesh)
-  accum = max(int(train_cfg.accum_steps), 1)
-  reduce = mesh is not None and mesh.world_size > 1
+  body = _make_step_body(model, train_cfg, mesh)
 
   def step_fn(state: TrainState, batch, generator=None):
-    scalars = eval_schedules(schedules, state.step)
-    grads, stats = _accum_grads(loss_fn, state.params, batch, generator,
-                                scalars, accum)
-    if reduce:
-      grads, stats = _mesh_reduce(grads, stats, mesh)
-    return _apply(state, grads, stats, scalars, train_cfg)
+    with tracing.span('nerfds.train.step', unit=state.step):
+      return body(state, batch, generator)
+
+  return step_fn
+
+
+def make_drawing_train_step(model: NerfDSModel, train_cfg: TrainConfig,
+                            draw: Callable[[torch.Generator], Dict[str, Any]],
+                            mesh: Optional[mesh_lib.DataMesh] = None):
+  """step(state, generator) -> (new state, stats), on the batch that
+  ``draw(generator)`` gives inside the step (its ``nerfds.train.gather``
+  span)."""
+  body = _make_step_body(model, train_cfg, mesh)
+
+  def step_fn(state: TrainState, generator: torch.Generator):
+    with tracing.span('nerfds.train.step', unit=state.step):
+      with tracing.span('nerfds.train.gather'):
+        batch = draw(generator)
+      return body(state, batch, generator)
 
   return step_fn
 
@@ -373,19 +414,18 @@ def make_fused_train_step(model: NerfDSModel, train_cfg: TrainConfig,
   With ``use_background_loss`` and ``background_points`` [P, 3] on the
   store's device, each step also draws ``background_batch_size`` of
   them."""
-  explicit = make_train_step(model, train_cfg, mesh)
   batch_size = local_batch_size(train_cfg, mesh)
   n_bg = 0
   if train_cfg.use_background_loss and background_points is not None:
     n_bg = background_batch_size(train_cfg, background_points.shape[0], mesh)
 
-  def step_fn(state: TrainState, generator: torch.Generator):
+  def draw(generator: torch.Generator):
     batch = sample_batch(store, generator, batch_size)
     if n_bg:
       idx = torch.randint(0, background_points.shape[0], (n_bg,),
                           generator=generator,
                           device=background_points.device)
       batch['background_points'] = background_points.index_select(0, idx)
-    return explicit(state, batch, generator)
+    return batch
 
-  return step_fn
+  return make_drawing_train_step(model, train_cfg, draw, mesh)
