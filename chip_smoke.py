@@ -14,8 +14,8 @@
 3. K1f, trunk forward with ∂σ/∂feat: kernel against its plain version, at
    the render and the training shapes, each timed as a share of its bound.
 4. Renders a 128x128 image with the full-width ``nerf_ds()`` model through
-   K1f and K2 (launch counts checked), then again on the plain path, and
-   compares the two.
+   K1f and K2, and K3 for the no-grad mask MLP (launch counts checked),
+   then again on the plain path, and compares the two.
 5. K1b, the trunk's hand-derived backward: kernel against its plain version
    at the training shapes and a ragged N; two launches must give the same
    bits; timed at both training shapes, split into the sweep, the weight
@@ -31,16 +31,17 @@
    waits on the card in one step of each.
 8. The held-out evaluation path at full width: the train CLI with an
    experiment directory, resumed from its checkpoint, then the eval CLI
-   (K2 on every eval chunk, K1f never); ``eval_psnr`` of the restored state
-   on the kernel and plain paths; K3 through ``fused_apply`` on every MLP
-   of the restored model, fed what each received in one render chunk, each
-   timed as a share of its bound.
+   (K2 twice and K3 8 times an eval chunk, K1f never); ``eval_psnr`` of the
+   restored state on the kernel and plain paths; K3 through ``fused_apply``
+   on every MLP of the restored model, fed what each received in one
+   render chunk, against the plain version, each timed as a share of its
+   bound.
 9. The captured-scene path at full width, through the CLIs: exports a
    two-camera vrig capture (4 frames a camera, 480x480, 192 ground-truth
    samples) on the card, writes its split cameras, trains ``nerf_ds()`` on
    it for 24 steps at batch 512 (K1f, K1b and K2 twice a step), runs the
-   eval CLI on its val, train and test splits (K2 only), renders a val
-   view and a novel camera path (K2 only), and scores the rendered val
+   eval CLI on its val, train and test splits (K2 and K3), renders a val
+   view and a novel camera path (K2 and K3), and scores the rendered val
    frame with ``metrics_pipeline`` against the eval CLI's PSNR; times the
    PNG decode of an exported frame and of a Paeth-filtered panel.
 10. The speed and precision modes at full width. (a) K1f and K1b in their
@@ -938,6 +939,11 @@ def phase_render(torch, device, kernel_names, size=128, chunk=4096):
     if launches[name] != 2 * num_chunks:
       raise AssertionError(f'{name} launched {launches[name]} times, want '
                            f'2 per chunk x {num_chunks} chunks')
+  # The mask MLP of each level runs under no_grad, so MLP.forward sends it
+  # to K3; the fields and the trunk run with grad on for ∇σ.
+  if launches['fused_mlp_fwd'] != 2 * num_chunks:
+    raise AssertionError(f'K3 launched {launches["fused_mlp_fwd"]} times, '
+                         f'want 2 per chunk x {num_chunks} chunks')
   want_shapes = {'rgb': (3,), 'depth': (), 'med_depth': (), 'acc': (),
                  'ray_norm': (3,), 'ray_delta_x': (3,),
                  'ray_hyper_points': (2,), 'ray_predicted_mask': (1,),
@@ -1096,9 +1102,11 @@ def phase_train(torch, device):
 
 
 def eval_launches_check(launches, chunks: int):
-  """K2 twice an eval chunk (coarse and fine); K1f, K1b and K3 never: eval
-  renders skip ∇σ, and no model path calls K3."""
-  want = {**dict.fromkeys(launches, 0), 'composite_fwd': 2 * chunks}
+  """K2 twice an eval chunk (coarse and fine), K3 8 times (MLP.forward
+  sends the NeRF trunk, mask MLP, SE(3) trunk and hyper sheet of each
+  level, all under no_grad); K1f and K1b never: eval renders skip ∇σ."""
+  want = {**dict.fromkeys(launches, 0), 'composite_fwd': 2 * chunks,
+          'fused_mlp_fwd': 8 * chunks}
   if launches != want:
     raise AssertionError(f'eval launches {launches}, want {want}')
 
@@ -1226,8 +1234,10 @@ def phase_eval(torch, device):
     out.update(val_psnr=k_psnr['psnr'], train_psnr=trained,
                untrained_train_psnr=untrained)
 
-    # K3 on the restored model: every MLP's input blocks (concatenated) and
-    # output in one render chunk, then fused_apply on each input.
+    # K3 on the restored model: every MLP's input blocks (concatenated) in
+    # one render chunk, then fused_apply on each input against the plain
+    # version (the render's own outputs came from K3 where MLP.forward
+    # routes it).
     model = trainer.model_with_params(restored.params)
     captured = []
     hooks = [m.register_forward_hook(
@@ -1260,8 +1270,14 @@ def phase_eval(torch, device):
       print(f'  {name}: {x.shape[0]} rows, {x.shape[1]} in, kernel '
             f'{ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}): '
             f'{bound_ms / ms:.1%} of the bound')
+      layers, has_out = fused_mlp.mlp_params_to_layers(mod, None)
+      with torch.no_grad():
+        plain_out = fused_mlp.fused_mlp_reference(
+            x, layers, mod.skips, mod.hidden_activation,
+            mod.output_activation, has_out)
       # The render-agreement tolerance: float32 in another order.
-      compare(torch, name, g, want, 1e-4, 1e-4)
+      compare(torch, name, g, plain_out, 1e-4, 1e-4)
+      compare(torch, f'{name} in the render', want, plain_out, 1e-4, 1e-4)
     del captured, got
   return out
 
@@ -1336,11 +1352,13 @@ def phase_capture(torch, device):
             'model.use_pallas_compositing=True', '--set',
             'model.sigma_gradient_mode=fused', '--set',
             f'train.print_every={TRAIN_STEPS // 2}'])
-    # K2 also runs twice a chunk in the closing eval of the 4 val views.
+    # K2 also runs twice a chunk in the closing eval of the 4 val views, K3
+    # 8 times (eval_launches_check).
     steps = 2 * TRAIN_STEPS
     check_launches('train CLI', launches, fused_trunk_fwd=steps,
                   fused_trunk_bwd=steps,
-                  composite_fwd=steps + 2 * frames * chunks_a_view)
+                  composite_fwd=steps + 2 * frames * chunks_a_view,
+                  fused_mlp_fwd=8 * frames * chunks_a_view)
     if state.step != TRAIN_STEPS or not all(
         np.isfinite(v) for v in metrics.values()):
       raise AssertionError(f'train CLI: step {state.step}, {metrics}')
@@ -1362,7 +1380,8 @@ def phase_capture(torch, device):
     report, out['eval_cli_s'], launches = run(eval_cli.main, [
         '--exp_dir', str(exp), '--eval_once', '--num_val_eval', '1',
         '--num_train_eval', '1', '--num_test_eval', '1', '--save_images'])
-    check_launches('eval CLI', launches, composite_fwd=2 * 3 * chunks_a_view)
+    check_launches('eval CLI', launches, composite_fwd=2 * 3 * chunks_a_view,
+                   fused_mlp_fwd=8 * 3 * chunks_a_view)
     for split in ('val', 'train'):
       print(f'  eval CLI {split}: {report[split]["per_item"]}')
       if not all(np.isfinite(v) for m in report[split]['per_item'].values()
@@ -1379,7 +1398,8 @@ def phase_capture(torch, device):
           '--exp_dir', str(exp), '--camera_path', path, '--interval',
           str(frames), '--out', str(exp / f'render_{name}')])
       check_launches(f'render CLI ({path})', launches,
-                    composite_fwd=2 * chunks_a_view)
+                    composite_fwd=2 * chunks_a_view,
+                    fused_mlp_fwd=8 * chunks_a_view)
       written = sorted(p.name for p in (render_dir / 'frames').glob('*.png'))
       print(f'  render CLI ({path}): {seconds:.1f} s, frames {written}')
       if written != [f'{n}.png' for n in names] or len(names) != 1:
@@ -1839,7 +1859,8 @@ def phase_speed_modes(torch, device, trainer):
         f'{metrics["psnr"]:.2f}')
   if (state.step != 6 or not np.isfinite(metrics['psnr'])
       or cli['composite_fwd'] < 12 or cli['composite_fwd'] % 2
-      or sum(cli.values()) != cli['composite_fwd']):
+      or not k3_in_evals_only(cli, 6)
+      or sum(cli.values()) != cli['composite_fwd'] + cli['fused_mlp_fwd']):
     raise AssertionError(f'train CLI nerf_ds_fast: step {state.step}, '
                          f'launches {cli}, metrics {metrics}')
   out['fast']['cli_launches'] = cli
@@ -2053,7 +2074,9 @@ def phase_deformation(torch, device, trainer):
       or not logged or not all(np.isfinite(x.get(
           'train/coarse/loss/elastic', np.nan)) for x in logged)
       or cli['composite_fwd'] < 2 * CLI_STEPS or cli['composite_fwd'] % 2
-      or sum(cli.values()) != cli['composite_fwd']):
+      # No mask MLP: the SE(3) trunk, the sheet and the trunk of each level.
+      or not k3_in_evals_only(cli, CLI_STEPS, per_chunk=6)
+      or sum(cli.values()) != cli['composite_fwd'] + cli['fused_mlp_fwd']):
     raise AssertionError(f'train CLI hypernerf: step {state.step}, launches '
                          f'{cli}, metrics {metrics}, logged {logged}')
   out['cli'] = dict(seconds=seconds, launches=cli)
@@ -2352,8 +2375,11 @@ def phase_radiance(torch, device, trainer, train):
       or cli['fused_trunk_bwd'] != 2 * CLI_STEPS
       or cli['fused_trunk_fwd'] < 2 * CLI_STEPS
       or cli['composite_fwd'] < 2 * CLI_STEPS or cli['composite_fwd'] % 2
+      # The eval takes ∇σ: only the mask MLP runs under no_grad.
+      or not k3_in_evals_only(cli, CLI_STEPS, per_chunk=2)
       or sum(cli.values()) != (cli['composite_fwd'] + cli['fused_trunk_fwd']
-                               + cli['fused_trunk_bwd'])):
+                               + cli['fused_trunk_bwd']
+                               + cli['fused_mlp_fwd'])):
     raise AssertionError(f'train CLI sigma_normals: step {state.step}, '
                          f'launches {cli}, metrics {metrics}, logged {logged}')
   out['cli'] = dict(seconds=seconds, launches=cli, psnr=metrics['psnr'])
@@ -2522,7 +2548,8 @@ def phase_variants(torch, device, trainer):
   render_s = time.perf_counter() - start
   render_launches = dict(kernels.launch_counts)
   check_launches('vanilla_nerf 128x128 render', render_launches,
-                 composite_fwd=-(-size * size // chunk))
+                 composite_fwd=-(-size * size // chunk),
+                 fused_mlp_fwd=-(-size * size // chunk))
   ref = render_lib.render_image(plain, rays, extra, generator=gen(),
                                 chunk=chunk)
   for k in ('rgb', 'depth', 'acc'):
@@ -2581,8 +2608,11 @@ def phase_variants(torch, device, trainer):
       or cli['fused_trunk_fwd'] < 2 * VARIANT_CLI_STEPS
       or cli['composite_fwd'] < 2 * VARIANT_CLI_STEPS
       or cli['composite_fwd'] % 2
+      # The bone field's two MLPs in place of the SE(3) trunk.
+      or not k3_in_evals_only(cli, VARIANT_CLI_STEPS, per_chunk=10)
       or sum(cli.values()) != (cli['composite_fwd'] + cli['fused_trunk_fwd']
-                               + cli['fused_trunk_bwd'])):
+                               + cli['fused_trunk_bwd']
+                               + cli['fused_mlp_fwd'])):
     raise AssertionError(f'train CLI bone: step {cli_state.step}, launches '
                          f'{cli}, metrics {metrics}, logged {logged}')
   out['bone']['cli'] = dict(seconds=cli_s, launches=cli,
@@ -3198,15 +3228,26 @@ def check_finite(name, row, keys):
     raise AssertionError(f'{name}: {row}')
 
 
+def k3_in_evals_only(launches, steps, per_chunk=8) -> bool:
+  """Whether K3 ran in a run's evaluations alone, for a run of ``steps``
+  training steps (K2 twice each) and evaluations (K2 twice a chunk): at
+  most ``per_chunk`` launches an evaluation chunk, the stacks that
+  ``MLP.forward`` routes at both levels of the run's model (8 for
+  ``nerf_ds()``: its NeRF trunk, mask MLP, SE(3) trunk and hyper sheet)."""
+  return launches['fused_mlp_fwd'] <= per_chunk * (
+      launches['composite_fwd'] - 2 * steps) // 2
+
+
 def check_trainer_launches(name, launches, steps):
   """Training runs that take ∇σ for ``steps`` steps on the kernel path,
   and evaluations: K1b twice a step, K1f and K2 at least as often (the
-  evaluations add theirs), K3 never."""
+  evaluations add theirs); K3 in the evaluations alone, at most 8 times an
+  evaluation chunk (4 for each of its 2 K2 launches)."""
   print(f'  {name} launches: {launches}')
   if not (launches['fused_trunk_bwd'] == 2 * steps
           and launches['fused_trunk_fwd'] >= 2 * steps
           and launches['composite_fwd'] >= 2 * steps
-          and not launches['fused_mlp_fwd']):
+          and k3_in_evals_only(launches, steps)):
     raise AssertionError(f'{name}: launches {launches}, want K1b '
                          f'{2 * steps}')
 
@@ -3615,8 +3656,8 @@ def main() -> int:
     r['launches_render'] = launches[r['name']]
     r['launches_train'] = train_launches[r['name']]
     r['launches_per_train_step'] = train_launches[r['name']] / TRAIN_STEPS
-  if launches['fused_mlp_fwd'] or train_launches['fused_mlp_fwd']:
-    raise AssertionError('K3 ran on the render or the training path')
+  if train_launches['fused_mlp_fwd']:
+    raise AssertionError('K3 ran on the training path')
   results[2]['launches'] = train_launches['fused_trunk_bwd']
   stamp('eval')
   evaluation = phase_eval(torch, device)

@@ -10,6 +10,12 @@ chain of ``@``, ``+``, activation and ``cat``. The wrapper takes the plain
 version only for CPU tensors and the kernel for CUDA tensors, and a shape
 outside the kernel's limits raises ``ValueError``.
 
+``models.mlp.MLP.forward`` reaches the kernel itself (:func:`mlp_forward`)
+for a float32 stack of at least ``MIN_ROUTED_DEPTH`` hidden layers called
+under no_grad on CUDA tensors (:func:`stack_refusal` and
+``MLP.k3_refusal`` give the rule), with the padded weights built once per
+set of parameters (:func:`mlp_operands`).
+
 Forward only, as in the JAX package: a call with grad mode on refuses
 tensors that require grad, rather than return a result without a
 gradient; ``fused_apply`` runs under ``torch.no_grad``. The output is
@@ -21,6 +27,7 @@ in f32.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -160,11 +167,6 @@ def _launch(x: torch.Tensor, layers: Layers, skips, hidden_activation,
             compute_dtype) -> torch.Tensor:
   """Runs ``csrc/fused_mlp_fwd.cu`` on the current stream."""
   _check_kernel_limits(x, layers)
-  n = x.shape[0]
-  out = torch.empty(n, layers[-1][0].shape[1], device=x.device,
-                    dtype=torch.float32)
-  if n == 0:
-    return out
   # The kernel copies x in 16-byte pieces: aligned rows of a multiple of 4
   # floats, zero past C_in; rounded here for bf16 compute.
   c_in = x.shape[1]
@@ -173,6 +175,18 @@ def _launch(x: torch.Tensor, layers: Layers, skips, hidden_activation,
     x = kernels.pad_columns(x, -(-c_in // 4) * 4)
   ops = kernel_operands(layers, skips, hidden_activation, output_activation,
                         has_output_layer, compute_dtype)
+  return _run(x, c_in, ops, compute_dtype)
+
+
+def _run(x: torch.Tensor, c_in: int, ops: list,
+         compute_dtype) -> torch.Tensor:
+  """One launch of the kernel over ``x [N, ldx]`` (contiguous, 16-byte
+  aligned, ``ldx`` a multiple of 4, zero past ``c_in``) and the layers'
+  :func:`kernel_operands`; float32 ``[N, cols]`` out."""
+  n = x.shape[0]
+  out = torch.empty(n, ops[-1][2], device=x.device, dtype=torch.float32)
+  if n == 0:
+    return out
   ptrs = [t.data_ptr() for op in ops for t in op[:2]]
   dims = [v for op in ops for v in op[2:]]
   if any(p % 16 for p in ptrs):
@@ -182,7 +196,7 @@ def _launch(x: torch.Tensor, layers: Layers, skips, hidden_activation,
   lib = build.load_library()
   with torch.cuda.device(x.device):
     rc = lib.fused_mlp_fwd(
-        x.data_ptr(), n, c_in, x.shape[1], ptr_array, dim_array, len(layers),
+        x.data_ptr(), n, c_in, x.shape[1], ptr_array, dim_array, len(ops),
         int(compute_dtype == torch.bfloat16), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
   build.check(rc, 'fused_mlp_fwd')
@@ -257,3 +271,105 @@ def fused_apply(mlp, params: Optional[Mapping[str, Any]], x: torch.Tensor,
         hidden_activation=mlp.hidden_activation,
         output_activation=mlp.output_activation,
         has_output_layer=has_output, tile=tile, compute_dtype=compute_dtype)
+
+
+# The fewest hidden layers of a stack that ``MLP.forward`` sends to the
+# kernel (:func:`stack_refusal`). At N = 524,288 on the H100 the σ/normal
+# head (no hidden layer) takes 0.39-0.44 ms here against F.linear's 0.26,
+# and the rgb branch (one hidden layer) ties its plain chain at 2.17 ms
+# while its 560-column input would first have to be concatenated.
+MIN_ROUTED_DEPTH = 2
+
+
+def _dense_layers(mlp) -> list:
+  """``mlp``'s Dense layers in the kernel's order: hidden, then output."""
+  layers = [mlp.hidden(i) for i in range(mlp.depth)]
+  if mlp.output_channels > 0:
+    layers.append(mlp.logit)
+  return layers
+
+
+def stack_refusal(mlp) -> Optional[str]:
+  """Why the kernel does not run the ``models.mlp.MLP`` stack ``mlp`` in
+  place of its plain chain, or None where it does: fewer than
+  ``MIN_ROUTED_DEPTH`` hidden layers ('depth'), a hidden norm
+  ('hidden_norm'), an activation the kernel lacks ('activation'), a layer
+  without a bias ('bias'), parameters that are not float32 ('dtype'), or a
+  shape past the kernel's compiled limits ('limits')."""
+  if mlp.depth < MIN_ROUTED_DEPTH:
+    return 'depth'
+  if mlp.hidden_norm not in (None, 'none'):
+    return 'hidden_norm'
+  if any((name or 'none') not in ACTIVATIONS
+         for name in (mlp.hidden_activation, mlp.output_activation)):
+    return 'activation'
+  layers = _dense_layers(mlp)
+  if any(d.bias is None for d in layers):
+    return 'bias'
+  if any(t.dtype != torch.float32 for d in layers
+         for t in (d.kernel, d.bias)):
+    return 'dtype'
+  if (len(layers) > KERNEL_MAX_LAYERS or mlp.in_dim > KERNEL_MAX_IN_DIM
+      or max(d.kernel.shape[1] for d in layers) > KERNEL_MAX_COLS):
+    return 'limits'
+  return None
+
+
+def mlp_operands(mlp) -> list:
+  """:func:`kernel_operands` of ``mlp``'s parameters in float32, built once
+  and kept on the module until a parameter is replaced (a
+  ``functional_call`` or a new state), moved or changed in place: the key
+  holds each parameter itself, its ``_version`` and its data pointer."""
+  params = [t for d in _dense_layers(mlp) for t in (d.kernel, d.bias)]
+  cached = getattr(mlp, '_k3_operands', None)
+  if cached is not None and len(cached[0]) == len(params) and all(
+      held is t and version == t._version and ptr == t.data_ptr()
+      for (held, version, ptr), t in zip(cached[0], params)):
+    return cached[1]
+  device = params[0].device
+  if any(t.device != device for t in params):
+    raise ValueError('the MLP\'s parameters lie on more than one device')
+  with torch.no_grad():
+    ops = kernel_operands(
+        [(w.detach(), b.detach()) for w, b in zip(params[::2], params[1::2])],
+        mlp.skips, mlp.hidden_activation, mlp.output_activation,
+        mlp.output_channels > 0, torch.float32)
+  mlp._k3_operands = ([(t, t._version, t.data_ptr()) for t in params], ops)
+  return ops
+
+
+def input_rows(inputs: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+  """The feature blocks ``inputs``, of one leading shape, written once side
+  by side into the kernel's ``x [N, ceil4(C_in)]`` (float32, zero past
+  ``C_in``), and that leading shape, whose rows N counts."""
+  lead = tuple(inputs[0].shape[:-1])
+  if any(tuple(p.shape[:-1]) != lead for p in inputs[1:]):
+    raise ValueError(f'feature blocks of leading shapes '
+                     f'{[tuple(p.shape[:-1]) for p in inputs]}')
+  c_in = sum(p.shape[-1] for p in inputs)
+  ldx = -(-c_in // 4) * 4
+  x = torch.empty(math.prod(lead), ldx, device=inputs[0].device,
+                  dtype=torch.float32)
+  rows = x.view(*lead, ldx)
+  offset = 0
+  for p in inputs:
+    rows[..., offset:offset + p.shape[-1]] = p
+    offset += p.shape[-1]
+  if ldx > c_in:
+    x[:, c_in:] = 0
+  return x, lead
+
+
+def mlp_forward(mlp, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+  """``mlp(inputs)`` in one launch of the kernel, for a call that
+  ``models.mlp.MLP.k3_refusal`` admits: ``inputs`` are float32 feature
+  blocks on the parameters' card, standing for their concatenation
+  (:func:`input_rows`)."""
+  c_in = sum(p.shape[-1] for p in inputs)
+  if c_in != mlp.in_dim:
+    raise ValueError(f'feature blocks sum to {c_in}, the MLP takes '
+                     f'{mlp.in_dim}')
+  x, lead = input_rows(inputs)
+  out = _run(x, c_in, mlp_operands(mlp), torch.float32)
+  return out.view(*lead, out.shape[-1])

@@ -22,6 +22,10 @@ Two precision modes, as in the JAX package (``config.compute_dtype`` and
 products, bias adds and activations in bf16 and returns float32;
 ``storage_dtype=torch.bfloat16`` keeps float32 compute but rounds every
 stored activation through bf16 (:func:`quantize_storage`).
+
+Under no_grad, a float32 stack of two or more hidden layers on a CUDA
+device runs in one launch of K3 (``kernels/fused_mlp.py``) in place of its
+chain of layers: :meth:`MLP.k3_refusal` gives the rule.
 """
 from __future__ import annotations
 
@@ -168,6 +172,13 @@ def dense_apply(dense: Dense, x: Blocks, dtype=None) -> torch.Tensor:
   return y
 
 
+def _fused_mlp():
+  """``kernels/fused_mlp.py``, imported at the call: it imports this
+  module."""
+  from nerfds_torch.kernels import fused_mlp
+  return fused_mlp
+
+
 class MLP(nn.Module):
   """Dense stack with input re-feed skips and an optional output layer.
 
@@ -203,15 +214,48 @@ class MLP(nn.Module):
   def hidden(self, i: int) -> Dense:
     return getattr(self, f'hidden_{i}')
 
+  def k3_refusal(self, inputs: Sequence[torch.Tensor], dtype=None,
+                 storage_dtype=None) -> Optional[str]:
+    """Why :meth:`forward` runs this call as the plain chain, or None where
+    it runs the whole stack in one launch of K3
+    (``kernels/fused_mlp.py``): grad mode on ('grad', so autograd and its
+    second-order terms see the plain chain), a ``dtype`` or a
+    ``storage_dtype`` ('dtype': K3 rounds to bf16 where the TPU kernel
+    does, not where this module casts), a stack K3 does not take
+    (``fused_mlp.stack_refusal``), feature blocks that are not float32
+    ('dtype'), that differ in their leading shape ('shape': the chain
+    broadcasts them) or that are not on one CUDA device with the
+    parameters ('device')."""
+    if torch.is_grad_enabled():
+      return 'grad'
+    if dtype is not None or storage_dtype is not None:
+      return 'dtype'
+    reason = _fused_mlp().stack_refusal(self)
+    if reason is not None:
+      return reason
+    if any(p.dtype != torch.float32 for p in inputs):
+      return 'dtype'
+    if any(p.shape[:-1] != inputs[0].shape[:-1] for p in inputs[1:]):
+      return 'shape'
+    device = self.hidden(0).kernel.device
+    if device.type != 'cuda' or any(p.device != device for p in inputs):
+      return 'device'
+    return None
+
   def forward(self, x: Blocks, dtype=None, storage_dtype=None,
               pointwise_norm: bool = False) -> torch.Tensor:
     """``dtype``: the inputs are cast once, the layers run in it and the
     output comes back in the inputs' dtype. ``storage_dtype``: each
     stored activation (the inputs and every hidden output) is quantised
     through it; ignored when ``dtype`` is set. ``pointwise_norm``: the
-    'batch' norm's statistics are each row's own (:func:`apply_norm`)."""
-    act = get_activation(self.hidden_activation)
+    'batch' norm's statistics are each row's own (:func:`apply_norm`).
+    A call that :meth:`k3_refusal` admits runs through K3 instead of the
+    chain of layers below, with the same result in another float32
+    summation order."""
     inputs = list(x) if isinstance(x, (list, tuple)) else [x]
+    if self.k3_refusal(inputs, dtype, storage_dtype) is None:
+      return _fused_mlp().mlp_forward(self, inputs)
+    act = get_activation(self.hidden_activation)
     if self.concat_input and len(inputs) > 1:
       inputs = [torch.cat(inputs, -1)]
     out_dtype = inputs[0].dtype

@@ -654,3 +654,99 @@ def test_bench_kernel_path_matches_plain_on_card(cuda):
     assert all(kernels.launch_counts[k] == before[k] + want for k in names)
     moments[path] = {k: v.cpu() for k, v in new.opt_state.mu.items()}
   assert worst_rel(moments['kernel'], moments['plain']) < 1e-3
+
+
+# The stacks of nerf_ds() that MLP.forward sends to K3 under no_grad, with
+# the feature blocks the model hands them: the NeRF trunk (the canonical
+# point's posenc and the hyper point's), the mask MLP (posenc and the mask
+# embedding), the SE(3) trunk (posenc and the warp embedding) and the hyper
+# sheet (posenc and the hyper embedding).
+ROUTED_STACKS = {
+    'nerf_trunk': (dict(in_dim=52, depth=8, width=256, skips=(4,)),
+                   (39, 13)),
+    'mask_mlp': (dict(in_dim=44, depth=8, width=128, skips=(4,),
+                      output_channels=1, output_activation='relu'), (36, 8)),
+    'se3_trunk': (dict(in_dim=33, depth=6, width=128, skips=(4,)), (25, 8)),
+    'hyper_sheet': (dict(in_dim=45, depth=6, width=64, skips=(4,),
+                         output_channels=2), (37, 8)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', list(ROUTED_STACKS))
+def test_mlp_forward_routes_no_grad_stacks_to_k3(cuda, name):
+  kw, widths = ROUTED_STACKS[name]
+  mlp = random_mlp(cuda, 12, **kw)
+  gen = torch.Generator().manual_seed(13)
+  blocks = [(torch.rand(4099, w, generator=gen) * 2 - 1).to(cuda)
+            for w in widths]
+  layers, has_out = tfm.mlp_params_to_layers(mlp, None)
+  want = tfm.fused_mlp_reference(
+      torch.cat(blocks, -1), layers, mlp.skips, mlp.hidden_activation,
+      mlp.output_activation, has_out)
+  before = kernels.launch_counts['fused_mlp_fwd']
+  with torch.no_grad():
+    assert mlp.k3_refusal(blocks) is None
+    got = mlp(blocks)
+  assert kernels.launch_counts['fused_mlp_fwd'] == before + 1
+  # As check_fused_mlp: float32 sums in another order than cuBLAS.
+  torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+  # Again from the kept operands, over 4097 = 17 x 241 of the rows with a
+  # leading batch axis: the same bits.
+  with torch.no_grad():
+    again = mlp([b[:4097].reshape(17, 241, -1) for b in blocks])
+  assert kernels.launch_counts['fused_mlp_fwd'] == before + 2
+  torch.testing.assert_close(again.reshape(4097, -1), got[:4097], rtol=0,
+                             atol=0)
+  # Grad mode on: the plain chain, and the gradient reaches the weights.
+  out = mlp(blocks)
+  assert kernels.launch_counts['fused_mlp_fwd'] == before + 2
+  torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+  out.square().sum().backward()
+  assert all(p.grad is not None and p.grad.abs().sum() > 0
+             for p in mlp.parameters())
+
+
+@pytest.mark.cuda
+def test_render_image_runs_k3_eight_times_a_chunk(cuda, monkeypatch):
+  """A no-grad render of a seeded full-width nerf_ds() launches K3 for the
+  NeRF trunk, the mask MLP, the SE(3) trunk and the hyper sheet of each
+  level, and its outputs match the same render with every MLP on its
+  plain chain within the render cell's limits (rgb 1e-4, acc 1e-5, depth
+  2e-5, normal 5e-5)."""
+  from nerfds_torch import config
+  from nerfds_torch.evaluation import render as render_lib
+  from nerfds_torch.models.nerfds import NerfDSModel, default_extra_params
+  cfg = config.nerf_ds()
+  model = NerfDSModel(cfg, num_warp_embeds=4, num_hyper_embeds=4,
+                      generator=torch.Generator().manual_seed(0),
+                      device=cuda)
+  with torch.no_grad():
+    for name, p in model.named_parameters():
+      if name.endswith('bias'):
+        p.uniform_(-0.1, 0.1)
+  rng = np.random.RandomState(1)
+  size, chunk = 40, 512
+  dirs = rng.randn(size, size, 3).astype(np.float32)
+  dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+  rays = {'origins': rng.randn(size, size, 3).astype(np.float32) * 0.1,
+          'directions': dirs,
+          'metadata': {'warp': np.full((size, size, 1), 2, np.int32)}}
+  extra = default_extra_params(cfg)
+
+  def render():
+    return render_lib.render_image(
+        model, rays, extra, chunk=chunk,
+        generator=torch.Generator(device=cuda).manual_seed(3))
+
+  before = kernels.launch_counts['fused_mlp_fwd']
+  got = render()
+  chunks = -(-size * size // chunk)
+  assert kernels.launch_counts['fused_mlp_fwd'] == before + 8 * chunks
+  monkeypatch.setattr(MLP, 'k3_refusal', lambda self, *a, **k: 'off')
+  want = render()
+  assert kernels.launch_counts['fused_mlp_fwd'] == before + 8 * chunks
+  for key, limit in (('rgb', 1e-4), ('acc', 1e-5), ('depth', 2e-5),
+                     ('ray_norm', 5e-5)):
+    gap = np.abs(got[key].astype(np.float64) - want[key]).max()
+    assert gap <= limit, (key, gap)

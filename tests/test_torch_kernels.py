@@ -898,3 +898,167 @@ def test_fused_mlp_kernel_operands_give_the_plain_result(case):
                                  mlp.output_activation, has_out)
   # Tolerance: float32; a skip layer's two products are summed apart here.
   torch.testing.assert_close(h[:, :k], want, rtol=1e-5, atol=1e-5)
+
+
+def routable_mlp(**overrides):
+  """A stack that ``MLP.forward`` would send to K3 on a card: float32,
+  3 hidden layers of 64 with a skip, an output layer of 2."""
+  kw = dict(in_dim=45, depth=3, width=64, skips=(1,), hidden_activation='relu',
+            output_channels=2, generator=torch.Generator().manual_seed(3))
+  kw.update(overrides)
+  return MLP(**kw)
+
+
+# Each case changes one thing about a routable call (a stack of
+# routable_mlp's, called under no_grad with float32 blocks) and names the
+# reason MLP.k3_refusal gives for keeping the plain chain. On the CPU the
+# unchanged call is refused for its device alone.
+ROUTING_CASES = {
+    'grad': (dict(), dict(grad=True), 'grad'),
+    'cpu_tensors': (dict(), dict(), 'device'),
+    'dtype_bf16': (dict(), dict(dtype=torch.bfloat16), 'dtype'),
+    'storage_dtype_bf16': (dict(), dict(storage_dtype=torch.bfloat16),
+                           'dtype'),
+    'hidden_norm': (dict(hidden_norm='layer'), dict(), 'hidden_norm'),
+    'depth0': (dict(depth=0, width=0, skips=()), dict(), 'depth'),
+    'depth1': (dict(depth=1, skips=()), dict(), 'depth'),
+    'elu': (dict(hidden_activation='elu'), dict(), 'activation'),
+    'gelu_output': (dict(output_activation='gelu'), dict(), 'activation'),
+    'too_wide': (dict(width=tfm.KERNEL_MAX_COLS + 1), dict(), 'limits'),
+    'no_bias': (dict(use_bias=False), dict(), 'bias'),
+    'float64_blocks': (dict(), dict(blocks_dtype=torch.float64), 'dtype'),
+    'broadcast_blocks': (dict(), dict(lead=((7,), (1,))), 'shape'),
+}
+
+
+@pytest.mark.parametrize('case', list(ROUTING_CASES))
+def test_mlp_forward_routing_rule(case):
+  mlp_kw, call, reason = ROUTING_CASES[case]
+  mlp = routable_mlp(**mlp_kw)
+  dtype = call.get('blocks_dtype', torch.float32)
+  lead = call.get('lead', ((7,), (7,)))
+  blocks = [torch.rand(*lead[0], 40, dtype=dtype),
+            torch.rand(*lead[1], 5, dtype=dtype)]
+  with torch.set_grad_enabled(call.get('grad', False)):
+    got = mlp.k3_refusal(blocks, call.get('dtype'), call.get('storage_dtype'))
+  assert got == reason
+  assert tfm.stack_refusal(mlp) == (
+      reason if reason in ('depth', 'hidden_norm', 'activation', 'limits',
+                           'bias') else None)
+
+
+def test_mlp_forward_runs_k3_where_the_rule_admits_it(monkeypatch):
+  """``MLP.forward`` hands an admitted call's blocks to
+  ``fused_mlp.mlp_forward`` once and returns its result, and runs the plain
+  chain for a refused one; ``mlp_forward`` is faked here (it launches the
+  CUDA kernel), over the real operands and input rows."""
+  mlp = routable_mlp()
+  blocks = [torch.rand(3, 4, 40), torch.rand(3, 4, 5)]
+  with torch.no_grad():
+    want = mlp(blocks)
+  calls = []
+
+  def fake(m, inputs):
+    calls.append(inputs)
+    x, lead = tfm.input_rows(inputs)
+    h, k = x[:, :m.in_dim], m.in_dim
+    for w, b, cols, _, skip, code in tfm.mlp_operands(m):
+      acc = h[:, :k] @ w[:k]
+      if skip:
+        acc = acc + x[:, :m.in_dim] @ w[k:]
+      h, k = tfm.apply_activation(acc + b, ACT_NAMES[code]), cols
+    return h[:, :k].reshape(*lead, k)
+
+  monkeypatch.setattr(tfm, 'mlp_forward', fake)
+  with torch.no_grad():
+    assert mlp(blocks) is not None and not calls  # refused: CPU tensors
+  monkeypatch.setattr(MLP, 'k3_refusal', lambda self, *a: None)
+  with torch.no_grad():
+    got = mlp(blocks)
+  assert len(calls) == 1 and calls[0][0] is blocks[0]
+  assert got.shape == want.shape == (3, 4, 2)
+  # Tolerance: float32; the chain sums each block's product apart.
+  torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_nerf_ds_stacks_that_reach_k3():
+  """Of nerf_ds()'s MLPs the rule takes the NeRF trunk of each level, the
+  SE(3) trunk, the hyper sheet and the mask MLP (8 launches a render
+  chunk: the three fields run at both levels); the σ/normal heads and the
+  rgb branches stay on the plain chain."""
+  from nerfds_torch import config
+  from nerfds_torch.models.nerfds import NerfDSModel
+  model = NerfDSModel(config.nerf_ds(), num_warp_embeds=2,
+                      num_hyper_embeds=2, device='cpu')
+  reasons = {name: tfm.stack_refusal(m) for name, m in model.named_modules()
+             if isinstance(m, MLP)}
+  assert {n for n, r in reasons.items() if r is None} == {
+      'warp_field.trunk', 'hyper_sheet.mlp', 'mask_mlp.mlp',
+      'nerf.coarse.trunk', 'nerf.fine.trunk'}
+  assert {n for n, r in reasons.items() if r is not None} == {
+      f'nerf.{level}.{head}' for level in ('coarse', 'fine')
+      for head in ('alpha', 'rgb')}
+  assert set(reasons.values()) == {None, 'depth'}
+
+
+def test_mlp_operands_are_kept_until_a_parameter_changes():
+  mlp = routable_mlp()
+  ops = tfm.mlp_operands(mlp)
+  assert tfm.mlp_operands(mlp) is ops
+  layers, has_out = tfm.mlp_params_to_layers(mlp, None)
+  want = tfm.kernel_operands(layers, mlp.skips, mlp.hidden_activation,
+                             mlp.output_activation, has_out, torch.float32)
+  for got_op, want_op in zip(ops, want):
+    assert torch.equal(got_op[0], want_op[0]) and got_op[2:] == want_op[2:]
+  # Changed in place (an optimizer's step, a loaded state): rebuilt.
+  with torch.no_grad():
+    mlp.hidden(1).kernel.mul_(2)
+  changed = tfm.mlp_operands(mlp)
+  assert changed is not ops
+  assert torch.equal(changed[1][0][:, :64], 2 * ops[1][0][:, :64])
+  assert tfm.mlp_operands(mlp) is changed
+  state = {k: v + 1 for k, v in mlp.state_dict().items()}
+  mlp.load_state_dict(state)
+  loaded = tfm.mlp_operands(mlp)
+  assert loaded is not changed
+  assert torch.equal(loaded[0][1][:64], state['hidden_0.bias'])
+  # Swapped for other tensors (torch.func.functional_call): rebuilt, and
+  # rebuilt again for the module's own parameters afterwards.
+  other = {k: torch.zeros_like(v) for k, v in state.items()}
+
+  class Operands(torch.nn.Module):
+    def __init__(self, inner):
+      super().__init__()
+      self.inner = inner
+
+    def forward(self):
+      return tfm.mlp_operands(self.inner)
+
+  swapped = torch.func.functional_call(
+      Operands(mlp), {f'inner.{k}': v for k, v in other.items()}, ())
+  assert not swapped[0][0].any()
+  back = tfm.mlp_operands(mlp)
+  assert back is not swapped
+  assert torch.equal(back[0][1][:64], state['hidden_0.bias'])
+
+
+@pytest.mark.parametrize('blocks', [
+    [(7, 33)],                      # the SE(3) trunk's 33 channels, one block
+    [(7, 40), (7, 5)],              # the hyper sheet's 45
+    [(2, 7, 36), (2, 7, 8)],        # the mask MLP's 44, a leading batch
+    [(0, 40), (0, 4)],              # no rows
+])
+def test_input_rows_write_the_blocks_once(blocks):
+  gen = torch.Generator().manual_seed(5)
+  parts = [torch.rand(*shape, generator=gen) for shape in blocks]
+  x, lead = tfm.input_rows(parts)
+  c_in = sum(p.shape[-1] for p in parts)
+  assert lead == blocks[0][:-1] and x.is_contiguous()
+  assert x.shape == (int(np.prod(lead)), -(-c_in // 4) * 4)
+  assert torch.equal(x[:, :c_in], torch.cat(parts, -1).reshape(-1, c_in))
+  assert not x[:, c_in:].any()
+
+
+def test_input_rows_refuse_blocks_of_other_leading_shapes():
+  with pytest.raises(ValueError, match='leading shapes'):
+    tfm.input_rows([torch.rand(3, 4, 40), torch.rand(4, 5)])
