@@ -941,9 +941,12 @@ def phase_render(torch, device, kernel_names, size=128, chunk=4096):
                            f'2 per chunk x {num_chunks} chunks')
   # The mask MLP of each level runs under no_grad, so MLP.forward sends it
   # to K3; the fields and the trunk run with grad on for ∇σ.
-  if launches['fused_mlp_fwd'] != 2 * num_chunks:
-    raise AssertionError(f'K3 launched {launches["fused_mlp_fwd"]} times, '
-                         f'want 2 per chunk x {num_chunks} chunks')
+  if (launches['fused_mlp_fwd'] != 2 * num_chunks
+      or launches[K3_PREFETCHED] != 18 * num_chunks):
+    raise AssertionError(f'K3 launched {launches["fused_mlp_fwd"]} times '
+                         f'({launches[K3_PREFETCHED]} layers prefetched), '
+                         f'want 2 per chunk x {num_chunks} chunks (18: the '
+                         f'mask MLP\'s 9 layers a level)')
   want_shapes = {'rgb': (3,), 'depth': (), 'med_depth': (), 'acc': (),
                  'ray_norm': (3,), 'ray_delta_x': (3,),
                  'ray_hyper_points': (2,), 'ray_predicted_mask': (1,),
@@ -1104,9 +1107,11 @@ def phase_train(torch, device):
 def eval_launches_check(launches, chunks: int):
   """K2 twice an eval chunk (coarse and fine), K3 8 times (MLP.forward
   sends the NeRF trunk, mask MLP, SE(3) trunk and hyper sheet of each
-  level, all under no_grad); K1f and K1b never: eval renders skip ∇σ."""
+  level, all under no_grad), their 60 layers' biases staged ahead of the
+  epilogues (8, 9, 6 and 7 a level); K1f and K1b never: eval renders skip
+  ∇σ."""
   want = {**dict.fromkeys(launches, 0), 'composite_fwd': 2 * chunks,
-          'fused_mlp_fwd': 8 * chunks}
+          'fused_mlp_fwd': 8 * chunks, K3_PREFETCHED: 60 * chunks}
   if launches != want:
     raise AssertionError(f'eval launches {launches}, want {want}')
 
@@ -1353,12 +1358,13 @@ def phase_capture(torch, device):
             'model.sigma_gradient_mode=fused', '--set',
             f'train.print_every={TRAIN_STEPS // 2}'])
     # K2 also runs twice a chunk in the closing eval of the 4 val views, K3
-    # 8 times (eval_launches_check).
+    # 8 times over 60 layers (eval_launches_check).
     steps = 2 * TRAIN_STEPS
     check_launches('train CLI', launches, fused_trunk_fwd=steps,
                   fused_trunk_bwd=steps,
                   composite_fwd=steps + 2 * frames * chunks_a_view,
-                  fused_mlp_fwd=8 * frames * chunks_a_view)
+                  fused_mlp_fwd=8 * frames * chunks_a_view,
+                  **{K3_PREFETCHED: 60 * frames * chunks_a_view})
     if state.step != TRAIN_STEPS or not all(
         np.isfinite(v) for v in metrics.values()):
       raise AssertionError(f'train CLI: step {state.step}, {metrics}')
@@ -1381,7 +1387,8 @@ def phase_capture(torch, device):
         '--exp_dir', str(exp), '--eval_once', '--num_val_eval', '1',
         '--num_train_eval', '1', '--num_test_eval', '1', '--save_images'])
     check_launches('eval CLI', launches, composite_fwd=2 * 3 * chunks_a_view,
-                   fused_mlp_fwd=8 * 3 * chunks_a_view)
+                   fused_mlp_fwd=8 * 3 * chunks_a_view,
+                   **{K3_PREFETCHED: 60 * 3 * chunks_a_view})
     for split in ('val', 'train'):
       print(f'  eval CLI {split}: {report[split]["per_item"]}')
       if not all(np.isfinite(v) for m in report[split]['per_item'].values()
@@ -1399,7 +1406,8 @@ def phase_capture(torch, device):
           str(frames), '--out', str(exp / f'render_{name}')])
       check_launches(f'render CLI ({path})', launches,
                     composite_fwd=2 * chunks_a_view,
-                    fused_mlp_fwd=8 * chunks_a_view)
+                    fused_mlp_fwd=8 * chunks_a_view,
+                    **{K3_PREFETCHED: 60 * chunks_a_view})
       written = sorted(p.name for p in (render_dir / 'frames').glob('*.png'))
       print(f'  render CLI ({path}): {seconds:.1f} s, frames {written}')
       if written != [f'{n}.png' for n in names] or len(names) != 1:
@@ -1860,7 +1868,7 @@ def phase_speed_modes(torch, device, trainer):
   if (state.step != 6 or not np.isfinite(metrics['psnr'])
       or cli['composite_fwd'] < 12 or cli['composite_fwd'] % 2
       or not k3_in_evals_only(cli, 6)
-      or sum(cli.values()) != cli['composite_fwd'] + cli['fused_mlp_fwd']):
+      or kernel_launches(cli) != cli['composite_fwd'] + cli['fused_mlp_fwd']):
     raise AssertionError(f'train CLI nerf_ds_fast: step {state.step}, '
                          f'launches {cli}, metrics {metrics}')
   out['fast']['cli_launches'] = cli
@@ -2076,7 +2084,7 @@ def phase_deformation(torch, device, trainer):
       or cli['composite_fwd'] < 2 * CLI_STEPS or cli['composite_fwd'] % 2
       # No mask MLP: the SE(3) trunk, the sheet and the trunk of each level.
       or not k3_in_evals_only(cli, CLI_STEPS, per_chunk=6)
-      or sum(cli.values()) != cli['composite_fwd'] + cli['fused_mlp_fwd']):
+      or kernel_launches(cli) != cli['composite_fwd'] + cli['fused_mlp_fwd']):
     raise AssertionError(f'train CLI hypernerf: step {state.step}, launches '
                          f'{cli}, metrics {metrics}, logged {logged}')
   out['cli'] = dict(seconds=seconds, launches=cli)
@@ -2377,7 +2385,7 @@ def phase_radiance(torch, device, trainer, train):
       or cli['composite_fwd'] < 2 * CLI_STEPS or cli['composite_fwd'] % 2
       # The eval takes ∇σ: only the mask MLP runs under no_grad.
       or not k3_in_evals_only(cli, CLI_STEPS, per_chunk=2)
-      or sum(cli.values()) != (cli['composite_fwd'] + cli['fused_trunk_fwd']
+      or kernel_launches(cli) != (cli['composite_fwd'] + cli['fused_trunk_fwd']
                                + cli['fused_trunk_bwd']
                                + cli['fused_mlp_fwd'])):
     raise AssertionError(f'train CLI sigma_normals: step {state.step}, '
@@ -2610,7 +2618,7 @@ def phase_variants(torch, device, trainer):
       or cli['composite_fwd'] % 2
       # The bone field's two MLPs in place of the SE(3) trunk.
       or not k3_in_evals_only(cli, VARIANT_CLI_STEPS, per_chunk=10)
-      or sum(cli.values()) != (cli['composite_fwd'] + cli['fused_trunk_fwd']
+      or kernel_launches(cli) != (cli['composite_fwd'] + cli['fused_trunk_fwd']
                                + cli['fused_trunk_bwd']
                                + cli['fused_mlp_fwd'])):
     raise AssertionError(f'train CLI bone: step {cli_state.step}, launches '
@@ -3228,6 +3236,16 @@ def check_finite(name, row, keys):
     raise AssertionError(f'{name}: {row}')
 
 
+# The entry of kernels.launch_counts that counts the layers K3 ran with
+# their bias staged ahead of the epilogue, not launches.
+K3_PREFETCHED = 'fused_mlp_fwd_prefetched_layers'
+
+
+def kernel_launches(counts) -> int:
+  """The launches of every kernel in a ``kernels.launch_counts`` copy."""
+  return sum(counts.values()) - counts[K3_PREFETCHED]
+
+
 def k3_in_evals_only(launches, steps, per_chunk=8) -> bool:
   """Whether K3 ran in a run's evaluations alone, for a run of ``steps``
   training steps (K2 twice each) and evaluations (K2 twice a chunk): at
@@ -3543,10 +3561,13 @@ def phase_clis(torch, device):
   print(f'  phase 15 wall times: {json.dumps(walls)}')
   return launches, out
 
-def check_launches(name, launches, **want):
-  """``launches`` must hold the counts in ``want``, and 0 for every other
-  kernel."""
-  want = {**dict.fromkeys(launches, 0), **want}
+def check_launches(name, launches, **given):
+  """``launches`` must hold the counts in ``given``, and 0 for every other
+  kernel; K3's count of layers (``K3_PREFETCHED``) where ``given`` has it,
+  and 0 where K3 does not run."""
+  want = {**dict.fromkeys(launches, 0), **given}
+  if given.get('fused_mlp_fwd') and K3_PREFETCHED not in given:
+    want[K3_PREFETCHED] = launches[K3_PREFETCHED]
   print(f'  {name} launches: {launches}')
   if launches != want:
     raise AssertionError(f'{name} launches {launches}, want {want}')

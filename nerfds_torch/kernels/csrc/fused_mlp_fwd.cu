@@ -17,17 +17,21 @@
 // k-major [256][68] activation tile and its output in registers; the
 // layer's weight streams through the 3-stage cp.async.cg ring, so each
 // weight element crosses from L2 into shared memory once a block and feeds
-// all 64 rows from there. The register tile follows the layer's width,
-// which the wrapper pads with zero columns to W = 256, 128 or 64 (or 16 for
-// the last layer): 8 x 8, 8 x 4, 4 x 4 or 1 x 4 outputs a thread, so a
-// 128-wide layer costs half the FMAs of a 256-wide one. A ring chunk of a
-// product with h holds KC = 4096 / W weight rows (at most 64), so every
-// chunk feeds the block the same 262,144 FMAs. x is not kept in shared
-// memory: at layer 0 and at each skip layer its k-chunks stream through a
-// second ring, beside the weight chunk of the same k rows (at most 32), as
-// row-major [64][KC + 4] pieces read from L2 (64 x c_in x 4 bytes a block a
-// pass). So x may be 1024 channels wide while the block's shared memory
-// stays fixed.
+// all 64 rows from there. The layer's bias rides in the same cp.async
+// groups into one of two bias slots in shared memory, so the epilogue
+// (bias add, activation, the tile or out written) reads it there and does
+// not wait on L2 (an __ldg in the epilogue cost 2-4% of K3's time on
+// nerf_ds()'s stacks on an H100). The register tile follows the layer's
+// width, which the wrapper pads with zero columns to W = 256, 128 or 64
+// (or 16 for the last layer): 8 x 8, 8 x 4, 4 x 4 or 1 x 4 outputs a
+// thread, so a 128-wide layer costs half the FMAs of a 256-wide one. A ring
+// chunk of a product with h holds KC = 4096 / W weight rows (at most 64),
+// so every chunk feeds the block the same 262,144 FMAs. x is not kept in
+// shared memory: at layer 0 and at each skip layer its k-chunks stream
+// through a second ring, beside the weight chunk of the same k rows (at
+// most 32), as row-major [64][KC + 4] pieces read from L2 (64 x c_in x 4
+// bytes a block a pass). So x may be 1024 channels wide while the block's
+// shared memory stays fixed.
 //
 // Two instantiations: a stack with a 256-wide layer takes the 8 x 8 tile's
 // 255 registers and a 256-row activation tile, so one block an SM; every
@@ -57,7 +61,8 @@
 //   activation tile  [256][68] f32     [128][68] f32     69,632 / 34,816 B
 //   weight ring      3 x 4096 f32                        49,152 B
 //   input ring       3 x 64 x 36 f32                     27,648 B
-//   total            146,432 B (1 block an SM)   111,616 B (2 blocks an SM)
+//   bias slots       2 x 256 f32       2 x 128 f32       2,048 / 1,024 B
+//   total            148,480 B (1 block an SM)   112,640 B (2 blocks an SM)
 // of the 232,448 B a block and 233,472 B an SM may use (1 KB of it
 // reserved a block).
 #include <cuda_bf16.h>
@@ -79,7 +84,7 @@ constexpr int XSTAGE = TM * (KCX + 4);  // floats of an input-ring stage
 
 // Shared memory of an instantiation whose widest layer is wmax columns.
 __host__ __device__ constexpr int smem_bytes(int wmax) {
-  return (wmax * LDA + RING_FLOATS + STAGES * XSTAGE) * 4;
+  return (wmax * LDA + RING_FLOATS + STAGES * XSTAGE + 2 * wmax) * 4;
 }
 
 enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kSoftplus = 3, kTanh = 4 };
@@ -320,6 +325,18 @@ __device__ __forceinline__ void store_out(float* __restrict__ out, int row0,
   }
 }
 
+// Issues the copy of layer l's bias (wpad floats) into slot l % 2 of the
+// [2][wmax] bias slots. The next cp.async commit, the first product's
+// first, takes it along, so the products' barriers publish it before the
+// epilogue; the slot's last reader, the layer two before, is a ring
+// barrier or more behind.
+__device__ __forceinline__ void stage_bias(const MlpParams& p, int l,
+                                           float* bias_s, int wmax) {
+  if (static_cast<int>(threadIdx.x) < p.wpad[l] / 4)
+    cp_async16(bias_s + (l & 1) * wmax + 4 * threadIdx.x,
+               p.b[l] + 4 * threadIdx.x, 16);
+}
+
 // One Dense layer of the tile at padded width W: reads h (k_cur rows) or,
 // at layer 0, x; at a skip layer x again; then bias, activation, and either
 // the activation tile or, for the last layer, out.
@@ -327,13 +344,15 @@ template <int W>
 __device__ __forceinline__ void layer(const MlpParams& p, int l, int k_cur,
                                       float* h, const float* __restrict__ x,
                                       int ldx, int c_in, int row0, int n,
-                                      float* ring, float* xring, int rnd,
+                                      float* ring, float* xring,
+                                      float* bias_s, int wmax, int rnd,
                                       bool last, float* __restrict__ out) {
   Acc<W> acc;
 #pragma unroll
   for (int i = 0; i < Tile<W>::RM; ++i)
 #pragma unroll
     for (int j = 0; j < Tile<W>::RN; ++j) acc[i][j] = 0.0f;
+  stage_bias(p, l, bias_s, wmax);
   const float* w = p.w[l];
   if (l == 0) mm_x<W>(acc, x, ldx, c_in, row0, n, w, ring, xring);
   else mm_h<W>(acc, h, k_cur, w, ring);
@@ -343,12 +362,12 @@ __device__ __forceinline__ void layer(const MlpParams& p, int l, int k_cur,
   const int act = p.act[l];
 #pragma unroll
   for (int j = 0; j < Tile<W>::RN; ++j) {
-    const float bias = __ldg(p.b[l] + Tile<W>::col(j));
+    const float b = bias_s[(l & 1) * wmax + Tile<W>::col(j)];
 #pragma unroll
     for (int i = 0; i < Tile<W>::RM; ++i) {
       float v = acc[i][j];
-      if (rnd) v = round_bf16(round_bf16(v) + bias);
-      else v = v + bias;
+      if (rnd) v = round_bf16(round_bf16(v) + b);
+      else v = v + b;
       v = activate(v, act);
       acc[i][j] = rnd ? round_bf16(v) : v;
     }
@@ -368,6 +387,8 @@ __global__ void __launch_bounds__(NT, WIDE ? 1 : 2) fused_mlp_fwd_kernel(
   float* h = smem;                                   // [wmax][LDA]
   float* ring = h + (WIDE ? WIDTH : NARROW) * LDA;   // [STAGES][CHUNK]
   float* xring = ring + RING_FLOATS;                 // [STAGES][TM][KCX + 4]
+  constexpr int wmax = WIDE ? WIDTH : NARROW;
+  float* bias_s = xring + STAGES * XSTAGE;           // [2][wmax]
   const int row0 = blockIdx.x * TM;
   int k_cur = c_in;
   for (int l = 0; l < num_layers; ++l) {
@@ -375,17 +396,20 @@ __global__ void __launch_bounds__(NT, WIDE ? 1 : 2) fused_mlp_fwd_kernel(
     switch (p.wpad[l]) {
       case 256:
         if constexpr (WIDE)
-          layer<256>(p, l, k_cur, h, x, ldx, c_in, row0, n, ring, xring, rnd,
-                     last, out);
+          layer<256>(p, l, k_cur, h, x, ldx, c_in, row0, n, ring, xring,
+                     bias_s, wmax, rnd, last, out);
         break;
       case 128:
-        layer<128>(p, l, k_cur, h, x, ldx, c_in, row0, n, ring, xring, rnd, last, out);
+        layer<128>(p, l, k_cur, h, x, ldx, c_in, row0, n, ring, xring,
+                   bias_s, wmax, rnd, last, out);
         break;
       case 64:
-        layer<64>(p, l, k_cur, h, x, ldx, c_in, row0, n, ring, xring, rnd, last, out);
+        layer<64>(p, l, k_cur, h, x, ldx, c_in, row0, n, ring, xring,
+                  bias_s, wmax, rnd, last, out);
         break;
       default:
-        layer<HEADW>(p, l, k_cur, h, x, ldx, c_in, row0, n, ring, xring, rnd, last, out);
+        layer<HEADW>(p, l, k_cur, h, x, ldx, c_in, row0, n, ring, xring,
+                     bias_s, wmax, rnd, last, out);
     }
     k_cur = p.cols[l];
   }

@@ -162,6 +162,13 @@ def kernel_operands(layers: Layers, skips, hidden_activation,
   return ops
 
 
+def prefetched_layers(ops: list) -> int:
+  """The layers of a launch over the layers' :func:`kernel_operands` whose
+  bias the kernel stages into shared memory with the layer's first weight
+  chunk, ahead of the epilogue that reads it: every layer."""
+  return len(ops)
+
+
 def _launch(x: torch.Tensor, layers: Layers, skips, hidden_activation,
             output_activation, has_output_layer: bool,
             compute_dtype) -> torch.Tensor:
@@ -201,6 +208,8 @@ def _run(x: torch.Tensor, c_in: int, ops: list,
         torch.cuda.current_stream(x.device).cuda_stream)
   build.check(rc, 'fused_mlp_fwd')
   kernels.launch_counts['fused_mlp_fwd'] += 1
+  kernels.launch_counts['fused_mlp_fwd_prefetched_layers'] += (
+      prefetched_layers(ops))
   return out
 
 

@@ -296,12 +296,22 @@ def random_mlp(cuda, seed, *args, **kwargs):
 
 
 def check_fused_mlp(cuda, mlp, n, seed, compute_dtype=None):
+  """K3 on n rows (one launch, none for n = 0) against the plain chain; each
+  launch stages every layer's bias ahead of its epilogue, and a second
+  launch gives the same bits."""
   x = (torch.rand(n, mlp.in_dim, generator=torch.Generator().manual_seed(
       seed)) * 2 - 1).to(cuda)
-  before = kernels.launch_counts['fused_mlp_fwd']
-  got = tfm.fused_apply(mlp, None, x, compute_dtype=compute_dtype)
-  assert kernels.launch_counts['fused_mlp_fwd'] == before + 1
   layers, has_out = tfm.mlp_params_to_layers(mlp, None)
+  before = dict(kernels.launch_counts)
+  got = tfm.fused_apply(mlp, None, x, compute_dtype=compute_dtype)
+  launched = int(n > 0)
+  assert kernels.launch_counts['fused_mlp_fwd'] == (
+      before['fused_mlp_fwd'] + launched)
+  assert kernels.launch_counts['fused_mlp_fwd_prefetched_layers'] == (
+      before['fused_mlp_fwd_prefetched_layers'] + launched * len(layers))
+  torch.testing.assert_close(
+      tfm.fused_apply(mlp, None, x, compute_dtype=compute_dtype), got,
+      rtol=0, atol=0)
   with torch.no_grad():
     want = tfm.fused_mlp_reference(
         x, layers, mlp.skips, mlp.hidden_activation, mlp.output_activation,
@@ -353,6 +363,51 @@ def test_fused_mlp_kernel_each_activation(cuda, act, compute_dtype):
   mlp = random_mlp(cuda, 7, 45, 3, 40, (0, 2), act, output_channels=3,
                    output_activation=None if act == 'none' else act)
   check_fused_mlp(cuda, mlp, 4099, seed=8, compute_dtype=compute_dtype)
+
+
+# Stacks that put each kind of layer boundary in K3 (where a layer's bias
+# slot and weights change): 256 -> 256, 128 -> 128 and 64 -> 64 with a skip
+# at layer 4 (the input ring entered mid-stack), a hidden layer into the
+# 16-wide head after 128 and after 64, a skip at layer 1, one layer (no
+# boundary) and the most layers the kernel takes (16 hidden and the head).
+K3_BOUNDARY_STACKS = {
+    'wide_skip4': dict(in_dim=52, depth=8, width=256, skips=(4,)),
+    'narrow_skip4_head': dict(in_dim=44, depth=8, width=128, skips=(4,),
+                              output_channels=1, output_activation='relu'),
+    'sheet_skip4_head': dict(in_dim=45, depth=6, width=64, skips=(4,),
+                             output_channels=2),
+    'skip1_head': dict(in_dim=45, depth=3, width=64, skips=(1,),
+                       output_channels=3),
+    'one_layer': dict(in_dim=256, depth=0, width=0, skips=(),
+                      output_channels=4),
+    'max_layers': dict(in_dim=45, depth=tfm.KERNEL_MAX_LAYERS - 1, width=64,
+                       skips=(4,), output_channels=16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', (4099, 65, 63, 1, 0))
+@pytest.mark.parametrize('stack', list(K3_BOUNDARY_STACKS))
+def test_fused_mlp_kernel_across_layer_boundaries(cuda, stack, n):
+  check_fused_mlp(cuda, random_mlp(cuda, 21, **K3_BOUNDARY_STACKS[stack]),
+                  n, seed=n + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('stack', ['wide_skip4', 'narrow_skip4_head',
+                                   'sheet_skip4_head'])
+def test_fused_mlp_kernel_layer_boundaries_bf16(cuda, stack):
+  check_fused_mlp(cuda, random_mlp(cuda, 22, **K3_BOUNDARY_STACKS[stack]),
+                  4099, seed=9, compute_dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('width', [256, 128])
+def test_fused_mlp_kernel_widest_input_mid_stack(cuda, width):
+  # 1024 input channels re-fed at layer 2: 32 or 64 chunks of x's rows
+  # between the h products of a stack.
+  mlp = random_mlp(cuda, 23, 1024, 4, width, (2,), output_channels=3)
+  check_fused_mlp(cuda, mlp, 4099, seed=10)
 
 
 def config2_step(rays: str):
@@ -740,9 +795,14 @@ def test_render_image_runs_k3_eight_times_a_chunk(cuda, monkeypatch):
         generator=torch.Generator(device=cuda).manual_seed(3))
 
   before = kernels.launch_counts['fused_mlp_fwd']
+  prefetched = kernels.launch_counts['fused_mlp_fwd_prefetched_layers']
   got = render()
   chunks = -(-size * size // chunk)
   assert kernels.launch_counts['fused_mlp_fwd'] == before + 8 * chunks
+  # 8, 9, 6 and 7 layers a level (NeRF trunk, mask MLP, SE(3) trunk,
+  # hyper sheet), each with its bias staged ahead of its epilogue.
+  assert kernels.launch_counts['fused_mlp_fwd_prefetched_layers'] == (
+      prefetched + 60 * chunks)
   monkeypatch.setattr(MLP, 'k3_refusal', lambda self, *a, **k: 'off')
   want = render()
   assert kernels.launch_counts['fused_mlp_fwd'] == before + 8 * chunks

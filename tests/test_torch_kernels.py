@@ -836,7 +836,10 @@ def test_mlp_kernel_constants_match_the_cuda_source():
   rings = tile['STAGES'] * (chunk + tm * (k3['KCX'] + 4))
   wide = 4 * (tile['WIDTH'] * lda + rings)
   narrow = 4 * (k3['NARROW'] * lda + rings)
-  assert (wide, narrow) == (146_432, 111_616)
+  # Two bias slots of the widest layer's columns.
+  wide += 4 * 2 * tile['WIDTH']
+  narrow += 4 * 2 * k3['NARROW']
+  assert (wide, narrow) == (148_480, 112_640)
   assert wide <= 232_448 and 2 * (narrow + 1024) <= 233_472
   for cols in range(1, tfm.KERNEL_MAX_COLS + 1):
     hidden = tfm.kernel_width(cols, last=False)
@@ -999,6 +1002,59 @@ def test_nerf_ds_stacks_that_reach_k3():
       f'nerf.{level}.{head}' for level in ('coarse', 'fine')
       for head in ('alpha', 'rgb')}
   assert set(reasons.values()) == {None, 'depth'}
+
+
+# The layers of each nerf_ds() stack that reaches K3, each of which has its
+# bias staged into shared memory ahead of its epilogue.
+NERF_DS_PREFETCHED_LAYERS = {
+    'nerf.coarse.trunk': 8, 'nerf.fine.trunk': 8, 'mask_mlp.mlp': 8 + 1,
+    'warp_field.trunk': 6, 'hyper_sheet.mlp': 6 + 1,
+}
+
+
+def test_k3_prefetched_layers_of_nerf_ds_stacks():
+  """The wrapper's count of each nerf_ds() stack that MLP.forward sends to
+  K3, from the operands it hands the kernel; a render chunk (the NeRF
+  trunk of each level, and the mask MLP, SE(3) trunk and hyper sheet at
+  both levels) adds 60 to the counter."""
+  from nerfds_torch import config
+  from nerfds_torch.models.nerfds import NerfDSModel
+  model = NerfDSModel(config.nerf_ds(), num_warp_embeds=2,
+                      num_hyper_embeds=2, device='cpu')
+  mlps = dict(model.named_modules())
+  per_stack = {name: tfm.prefetched_layers(tfm.mlp_operands(mlps[name]))
+               for name in NERF_DS_PREFETCHED_LAYERS}
+  assert per_stack == NERF_DS_PREFETCHED_LAYERS
+  per_chunk = (per_stack['nerf.coarse.trunk'] + per_stack['nerf.fine.trunk']
+               + 2 * sum(per_stack[n] for n in ('mask_mlp.mlp',
+                                                'warp_field.trunk',
+                                                'hyper_sheet.mlp')))
+  assert per_chunk == 60
+
+
+# Stacks at K3's edges: one layer, the most layers K3 takes, skips at layer
+# 0 and 1, a 1024-wide input, and a 16-wide head after 128; (MLP arguments,
+# layers).
+PREFETCHED_LAYER_CASES = {
+    'one_layer': (dict(in_dim=256, depth=0, width=0, skips=(),
+                       output_channels=4), 1),
+    'max_layers': (dict(in_dim=45, depth=16, width=64, skips=(4,),
+                        output_channels=16), tfm.KERNEL_MAX_LAYERS),
+    'skip_0_and_2': (dict(in_dim=45, depth=3, width=40, skips=(0, 2),
+                          output_channels=3), 4),
+    'skip_1_wide_input': (dict(in_dim=1024, depth=2, width=256, skips=(1,),
+                               output_channels=3), 3),
+    'head_after_128': (dict(in_dim=33, depth=2, width=128, skips=(),
+                            output_channels=2), 3),
+}
+
+
+@pytest.mark.parametrize('case', list(PREFETCHED_LAYER_CASES))
+def test_k3_prefetched_layers_at_its_edges(case):
+  kw, layers = PREFETCHED_LAYER_CASES[case]
+  mlp = MLP(generator=torch.Generator().manual_seed(4), **kw)
+  ops = tfm.mlp_operands(mlp)
+  assert tfm.prefetched_layers(ops) == len(ops) == layers
 
 
 def test_mlp_operands_are_kept_until_a_parameter_changes():
